@@ -1,0 +1,140 @@
+"""Multi-future inference command (PyTorch): Forking Paths obs -> K
+trajectories.
+
+Same flags and output pickles as ``mvt-multifuture-inference``, with
+two changes: weights come from ``--params_npz`` (a flat npz written by
+``multiverse_torch.bridge.save_params_npz``) instead of an orbax
+checkpoint directory, and ``--device`` picks the device (default cuda).
+Without ``--params_npz`` the model runs on seeded random weights.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from multiverse_tpu.config import MultiverseConfig
+from multiverse_torch.bridge import check_params, load_params_npz
+from multiverse_torch.inference import (
+    load_multifuture_inputs,
+    run_multifuture_inference,
+    save_outputs,
+)
+from multiverse_torch.models import Multiverse
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("traj_path", help="obs trajectory TSVs")
+    parser.add_argument("multifuture_path", help="GT future pickles")
+    parser.add_argument("output_file")
+    parser.add_argument("--params_npz", default=None,
+                        help="weights as a flat npz ('/'-joined names); "
+                             "default: seeded random weights (seed 0)")
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--save_prob_file", default=None)
+    parser.add_argument("--prob_fetch_dtype", default="float32",
+                        choices=["float32", "float16"])
+    parser.add_argument("--obs_length", type=int, default=8)
+    parser.add_argument("--num_out", type=int, default=20)
+    parser.add_argument("--greedy", action="store_true")
+    parser.add_argument("--center_only", action="store_true")
+    parser.add_argument("--diverse_beam", action="store_true")
+    parser.add_argument("--diverse_gamma", type=float, default=1.0)
+    parser.add_argument("--fix_num_timestep", type=int, default=0)
+    parser.add_argument("--grid_strides", default="2,4")
+    parser.add_argument("--use_grids", default="1,0")
+    parser.add_argument("--emb_size", type=int, default=32)
+    parser.add_argument("--enc_hidden_size", type=int, default=256)
+    parser.add_argument("--dec_hidden_size", type=int, default=256)
+    parser.add_argument("--scene_conv_kernel", type=int, default=3)
+    parser.add_argument("--scene_conv_dim", type=int, default=64)
+    parser.add_argument("--convlstm_kernel", type=int, default=3)
+    parser.add_argument("--use_gnn", action="store_true")
+    parser.add_argument("--use_scene_enc", action="store_true")
+    parser.add_argument("--use_single_decoder", action="store_true")
+    parser.add_argument("--use_soft_grid_class", action="store_true")
+    parser.add_argument("--norm_input", action="store_true")
+    parser.add_argument("--scene_feat_path", default=None)
+    parser.add_argument("--scene_id2name", default=None)
+    parser.add_argument("--scene_h", type=int, default=36)
+    parser.add_argument("--scene_w", type=int, default=64)
+    parser.add_argument("--scene_class", type=int, default=11)
+    parser.add_argument("--video_h", type=int, default=1080)
+    parser.add_argument("--video_w", type=int, default=1920)
+    parser.add_argument("--batch_size", type=int, default=16)
+    parser.add_argument("--compute_dtype", default="bfloat16")
+    parser.add_argument("--decode_quant", default="none",
+                        choices=["none", "int8", "int8a", "int8_dyn"])
+    parser.add_argument("--beam_select", default="twostage",
+                        choices=["twostage", "dense"])
+    return parser
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    prog = "mvt-torch-multifuture-inference"
+    if args.greedy:
+        raise SystemExit(f"{prog}: --greedy is not ported yet; the port "
+                         "runs the beam search only")
+    if args.decode_quant != "none":
+        raise SystemExit(f"{prog}: --decode_quant {args.decode_quant} needs "
+                         "the int8 decode kernels, which are not ported yet; "
+                         "use --decode_quant none")
+    cfg = MultiverseConfig(
+        obs_len=args.obs_length,
+        emb_size=args.emb_size,
+        enc_hidden_size=args.enc_hidden_size,
+        dec_hidden_size=args.dec_hidden_size,
+        scene_conv_kernel=args.scene_conv_kernel,
+        scene_conv_dim=args.scene_conv_dim,
+        convlstm_kernel=args.convlstm_kernel,
+        use_gnn=args.use_gnn,
+        use_scene_enc=args.use_scene_enc,
+        use_single_decoder=args.use_single_decoder,
+        use_soft_grid_class=args.use_soft_grid_class,
+        norm_input=args.norm_input,
+        scene_h=args.scene_h,
+        scene_w=args.scene_w,
+        scene_class=args.scene_class,
+        video_h=args.video_h,
+        video_w=args.video_w,
+        beam_size=args.num_out,
+        use_beam_search=True,
+        diverse_beam=args.diverse_beam,
+        diverse_gamma=args.diverse_gamma,
+        fix_num_timestep=args.fix_num_timestep,
+        compute_dtype=args.compute_dtype,
+        beam_select=args.beam_select,
+        **MultiverseConfig.parse_strides(args.grid_strides, args.use_grids),
+    ).validate()
+
+    inputs = load_multifuture_inputs(
+        args.traj_path, args.multifuture_path,
+        args.scene_feat_path, args.scene_id2name, cfg)
+    print("loaded %d trajectories" % len(inputs.traj_ids))
+
+    model = Multiverse.init(cfg, seed=0)
+    if args.params_npz is None:
+        print(f"{prog}: no --params_npz, decoding with seeded random "
+              "weights (seed 0)", file=sys.stderr)
+    else:
+        loaded = load_params_npz(args.params_npz)
+        check_params(loaded, model)
+        model = loaded
+
+    output_data, beam_prob = run_multifuture_inference(
+        model, inputs, cfg,
+        batch_size=args.batch_size,
+        center_only=args.center_only,
+        need_prob=args.save_prob_file is not None,
+        prob_fetch_dtype=args.prob_fetch_dtype,
+        device=args.device,
+    )
+    save_outputs(output_data, beam_prob,
+                 args.output_file, args.save_prob_file)
+    print("wrote %s" % args.output_file)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,428 @@
+// Fused beam decode step for Hopper (sm_90a): GNN attention on the
+// parent's hidden state, the 3x3 ConvLSTM gate conv over
+// [emb_table[id] (+) h + agg] with the LSTM update fused into its
+// epilogue, and the 3x3 single-channel class readout.
+//
+// Replaces the TPU kernel multiverse_tpu/ops/pallas_decode.py
+// decode_step_pallas_gathered (body _decode_kernel). Same math and the
+// same rounding points; a different block structure:
+//
+//   1. gnn_attention_kernel   one warp per (beam row, pixel). The TPU
+//      kernel forms the dense [HW, HW] edge tile (1.3 MB in f32 at
+//      18x32), far beyond a block's 227 KB of shared memory. The mask is
+//      the 3x3 neighbourhood and exp(-1e30) is 0 in f32, so the softmax
+//      over the 9 neighbours is exact. Writes h2 = bf16(h + agg).
+//   2. gate_lstm_kernel       implicit-GEMM 3x3 conv: M = NK*HW pixels,
+//      K = 9*(E+D), N = 4*D gates, bf16 wmma with f32 accumulation,
+//      3-stage cp.async pipeline. A block's 128 gate columns are the
+//      i, g, f, o columns of 32 channels, so the LSTM update runs in the
+//      epilogue from shared memory; the gates never reach device memory.
+//   3. class_readout_kernel   one warp per output pixel: the nine
+//      (neighbour, tap) dot products over D, summed in tap order.
+//
+// Bound: at NK=320, 18x32, D=256, E=32 one step is ~0.98 TFLOP in the
+// gate product against ~0.4 GB of state traffic (h and c read and
+// written), ~2.4 kFLOP/byte, far above the H100's ~295 FLOP/byte bf16
+// ridge: the gate product is compute-bound, so its tensor-core
+// throughput is what later work on this kernel should raise (wgmma, TMA).
+//
+// Plain C interface, bound from Python with ctypes; every function
+// returns the cudaError_t of its launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+namespace wmma = nvcuda::wmma;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ float2 load_bf16x2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float sigmoidf_(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// ---------------------------------------------------------------- 1. GNN
+
+// Sum of squares of node = h_row (+) scene_row, over the warp.
+__device__ float node_sumsq(const bf16* hq, const bf16* sq, int D, int C,
+                            int lane) {
+  float s = 0.f;
+  for (int k = 2 * lane; k < D; k += 64) {
+    float2 v = load_bf16x2(hq + k);
+    s += v.x * v.x + v.y * v.y;
+  }
+  for (int k = 2 * lane; k < C; k += 64) {
+    float2 v = load_bf16x2(sq + k);
+    s += v.x * v.x + v.y * v.y;
+  }
+  return warp_sum(s);
+}
+
+// Dot product of the two bf16-rounded normalised nodes, f32 accumulation.
+__device__ float node_dot(const bf16* hp, const bf16* sp, float inv_p,
+                          const bf16* hq, const bf16* sq, float inv_q, int D,
+                          int C, int lane) {
+  float s = 0.f;
+  for (int k = 2 * lane; k < D; k += 64) {
+    float2 a = load_bf16x2(hp + k), b = load_bf16x2(hq + k);
+    s += round_bf16(a.x * inv_p) * round_bf16(b.x * inv_q) +
+         round_bf16(a.y * inv_p) * round_bf16(b.y * inv_q);
+  }
+  for (int k = 2 * lane; k < C; k += 64) {
+    float2 a = load_bf16x2(sp + k), b = load_bf16x2(sq + k);
+    s += round_bf16(a.x * inv_p) * round_bf16(b.x * inv_q) +
+         round_bf16(a.y * inv_p) * round_bf16(b.y * inv_q);
+  }
+  return warp_sum(s);
+}
+
+__global__ void __launch_bounds__(256)
+gnn_attention_kernel(const int* __restrict__ parent_rows,
+                     const bf16* __restrict__ h,      // [*, HW, D] old order
+                     const bf16* __restrict__ scene,  // [NK, HW, C] or null
+                     bf16* __restrict__ h2,           // [NK, HW, D] new order
+                     int NK, int H, int W, int D, int C) {
+  const int lane = threadIdx.x & 31;
+  const long long item =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int HW = H * W;
+  if (item >= (long long)NK * HW) return;
+  const int r = (int)(item / HW);
+  const int p = (int)(item - (long long)r * HW);
+  const int y = p / W, x = p - (p / W) * W;
+  const bf16* hrow = h + (long long)parent_rows[r] * HW * D;
+  const bf16* srow = scene ? scene + (long long)r * HW * C : nullptr;
+
+  // neighbour offsets in (dy, dx) order; -1 marks a padded position
+  int q[9];
+#pragma unroll
+  for (int s = 0; s < 9; ++s) {
+    const int yy = y + s / 3 - 1, xx = x + s % 3 - 1;
+    q[s] = (yy >= 0 && yy < H && xx >= 0 && xx < W) ? yy * W + xx : -1;
+  }
+  const bf16* hp = hrow + (long long)p * D;
+  const bf16* sp = srow ? srow + (long long)p * C : nullptr;
+  const float inv_p =
+      rsqrtf(fmaxf(node_sumsq(hp, sp, D, C, lane), 1e-12f));
+
+  float e[9];
+  float m = -INFINITY;
+#pragma unroll
+  for (int s = 0; s < 9; ++s) {
+    e[s] = 0.f;
+    if (q[s] < 0) continue;
+    const bf16* hq = hrow + (long long)q[s] * D;
+    const bf16* sq = srow ? srow + (long long)q[s] * C : nullptr;
+    const float inv_q =
+        s == 4 ? inv_p : rsqrtf(fmaxf(node_sumsq(hq, sq, D, C, lane), 1e-12f));
+    e[s] = node_dot(hp, sp, inv_p, hq, sq, inv_q, D, C, lane);
+    m = fmaxf(m, e[s]);
+  }
+  float total = 0.f;
+#pragma unroll
+  for (int s = 0; s < 9; ++s) {
+    if (q[s] < 0) continue;
+    e[s] = expf(e[s] - m);
+    total += e[s];
+  }
+#pragma unroll
+  for (int s = 0; s < 9; ++s) e[s] = q[s] < 0 ? 0.f : round_bf16(e[s] / total);
+
+  bf16* out = h2 + item * D;
+  for (int k = 2 * lane; k < D; k += 64) {
+    float ax = 0.f, ay = 0.f;
+#pragma unroll
+    for (int s = 0; s < 9; ++s) {
+      if (q[s] < 0) continue;
+      float2 v = load_bf16x2(hrow + (long long)q[s] * D + k);
+      ax += e[s] * v.x;
+      ay += e[s] * v.y;
+    }
+    float2 own = load_bf16x2(hp + k);
+    *reinterpret_cast<__nv_bfloat162*>(out + k) =
+        __floats2bfloat162_rn(own.x + ax, own.y + ay);
+  }
+}
+
+// ------------------------------------------------------- 2. gates + LSTM
+
+constexpr int BM = 128;           // pixels per block
+constexpr int DT = 32;            // hidden channels per block
+constexpr int BN = 4 * DT;        // gate columns per block: i, g, f, o
+constexpr int BK = 32;            // depth per pipeline stage
+constexpr int STAGES = 3;
+constexpr int THREADS = 256;      // 8 warps: 2 (M) x 4 (N), 64x32 each
+constexpr int A_LD = BK + 8;      // bf16, padded against bank conflicts
+constexpr int B_LD = BN + 8;
+constexpr int C_LD = BN + 4;      // f32 epilogue tile
+constexpr int A_STAGE = BM * A_LD;
+constexpr int B_STAGE = BK * B_LD;
+constexpr size_t PIPE_BYTES = (size_t)STAGES * (A_STAGE + B_STAGE) * 2;
+constexpr size_t EPI_BYTES = (size_t)BM * C_LD * 4;
+constexpr size_t GATE_SMEM = PIPE_BYTES > EPI_BYTES ? PIPE_BYTES : EPI_BYTES;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = pred ? 16 : 0;  // 0 bytes read: the 16 bytes are zeroed
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__global__ void __launch_bounds__(THREADS)
+gate_lstm_kernel(const int* __restrict__ prev_ids,
+                 const int* __restrict__ parent_rows,
+                 const bf16* __restrict__ emb_table,  // [HW, HW, E]
+                 const bf16* __restrict__ h2,         // [NK, HW, D]
+                 const bf16* __restrict__ c,          // [*, HW, D] old order
+                 const bf16* __restrict__ cell_w,     // [9*(E+D), 4*D]
+                 const float* __restrict__ cell_b,    // [4*D]
+                 bf16* __restrict__ h_out, bf16* __restrict__ c_out,
+                 int NK, int H, int W, int D, int E, float forget_bias) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Bs = As + STAGES * A_STAGE;
+  float* Cs = reinterpret_cast<float*>(smem);
+
+  const int HW = H * W;
+  const int Cin = E + D;
+  const int Kdim = 9 * Cin;
+  const int N4 = 4 * D;
+  const long long M = (long long)NK * HW;
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int d0 = blockIdx.y * DT;
+  const int tid = threadIdx.x;
+
+  // this thread's two A rows (pixels) and 16-byte column within a stage
+  const int a_col = (tid & 3) * 8;
+  bool a_ok[2];
+  int a_y[2], a_x[2];
+  long long a_emb[2], a_h2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long m = m0 + (tid >> 2) + i * 64;
+    a_ok[i] = m < M;
+    const long long mm = a_ok[i] ? m : 0;
+    const int r = (int)(mm / HW), p = (int)(mm - (long long)r * HW);
+    a_y[i] = p / W;
+    a_x[i] = p - a_y[i] * W;
+    a_emb[i] = (long long)prev_ids[r] * HW * E;
+    a_h2[i] = (long long)r * HW * D;
+  }
+
+  auto load_stage = [&](int kt, int stage) {
+    bf16* as = As + stage * A_STAGE;
+    bf16* bs = Bs + stage * B_STAGE;
+    const int k = kt * BK + a_col;
+    const int s = k / Cin, ch = k - s * Cin;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int yy = a_y[i] + s / 3 - 1, xx = a_x[i] + s % 3 - 1;
+      const bool ok = a_ok[i] && k < Kdim && yy >= 0 && yy < H && xx >= 0 &&
+                      xx < W;
+      const bf16* src = emb_table;
+      if (ok) {
+        const long long qq = (long long)yy * W + xx;
+        src = ch < E ? emb_table + a_emb[i] + qq * E + ch
+                     : h2 + a_h2[i] + qq * D + (ch - E);
+      }
+      cp_async16(as + ((tid >> 2) + i * 64) * A_LD + a_col, src, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int v = tid + i * THREADS;
+      const int krow = v >> 4, j = (v & 15) * 8;
+      const int kk = kt * BK + krow;
+      const bool ok = kk < Kdim;
+      const bf16* src =
+          ok ? cell_w + (long long)kk * N4 + (j / DT) * D + d0 + (j % DT)
+             : cell_w;
+      cp_async16(bs + krow * B_LD + j, src, ok);
+    }
+  };
+
+  const int warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  const int nk = (Kdim + BK - 1) / BK;
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nk) load_stage(st, st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int pre = kt + STAGES - 1;
+    if (pre < nk) load_stage(pre, pre % STAGES);
+    cp_async_commit();
+
+    const bf16* as = As + (kt % STAGES) * A_STAGE;
+    const bf16* bs = Bs + (kt % STAGES) * B_STAGE;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wmma::load_matrix_sync(a[i], as + (wm * 64 + i * 16) * A_LD + kk,
+                               A_LD);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], bs + kk * B_LD + wn * 32 + j * 16, B_LD);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the epilogue tile reuses the pipeline's shared memory
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm * 64 + i * 16) * C_LD + wn * 32 + j * 16,
+                              acc[i][j], C_LD, wmma::mem_row_major);
+  __syncthreads();
+
+  for (int e = tid; e < BM * DT; e += THREADS) {
+    const int row = e / DT, dd = e % DT;
+    const long long m = m0 + row;
+    if (m >= M) continue;
+    const int r = (int)(m / HW), p = (int)(m - (long long)r * HW);
+    const int d = d0 + dd;
+    const float* g = Cs + row * C_LD + dd;
+    const float gi = g[0] + cell_b[d];
+    const float gg = g[DT] + cell_b[D + d];
+    const float gf = g[2 * DT] + cell_b[2 * D + d];
+    const float go = g[3 * DT] + cell_b[3 * D + d];
+    const float c_old = __bfloat162float(
+        c[((long long)parent_rows[r] * HW + p) * D + d]);
+    const float nc = sigmoidf_(gf + forget_bias) * c_old + sigmoidf_(gi) * tanhf(gg);
+    const float nh = tanhf(nc) * sigmoidf_(go);
+    h_out[m * D + d] = __float2bfloat16(nh);
+    c_out[m * D + d] = __float2bfloat16(nc);
+  }
+}
+
+// ------------------------------------------------------------ 3. readout
+
+__global__ void __launch_bounds__(256)
+class_readout_kernel(const bf16* __restrict__ h_new,  // [NK, HW, D]
+                     const bf16* __restrict__ w,      // [D, ldw], taps 0..8
+                     int ldw, float* __restrict__ logits,  // [NK, HW]
+                     int NK, int H, int W, int D) {
+  extern __shared__ float w_s[];  // [9, D]
+  for (int i = threadIdx.x; i < 9 * D; i += blockDim.x) {
+    const int s = i / D, d = i - (i / D) * D;
+    w_s[i] = __bfloat162float(w[(long long)d * ldw + s]);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const long long item =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int HW = H * W;
+  if (item >= (long long)NK * HW) return;
+  const int r = (int)(item / HW);
+  const int p = (int)(item - (long long)r * HW);
+  const int y = p / W, x = p - (p / W) * W;
+  float acc = 0.f;
+#pragma unroll
+  for (int s = 0; s < 9; ++s) {
+    const int yy = y + s / 3 - 1, xx = x + s % 3 - 1;
+    if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
+    const bf16* hq = h_new + ((long long)r * HW + yy * W + xx) * D;
+    const float* ws = w_s + s * D;
+    float part = 0.f;
+    for (int k = 2 * lane; k < D; k += 64) {
+      float2 v = load_bf16x2(hq + k);
+      part += v.x * ws[k] + v.y * ws[k + 1];
+    }
+    acc += warp_sum(part);
+  }
+  if (lane == 0) logits[item] = acc;
+}
+
+constexpr int ROW_THREADS = 256;  // 8 warps, one (row, pixel) each
+
+unsigned row_blocks(int NK, int HW) {
+  const long long items = (long long)NK * HW;
+  return (unsigned)((items + ROW_THREADS / 32 - 1) / (ROW_THREADS / 32));
+}
+
+}  // namespace
+
+extern "C" {
+
+int mv_gnn_attention(const int* parent_rows, const void* h, const void* scene,
+                     void* h2, int NK, int H, int W, int D, int C,
+                     void* stream) {
+  gnn_attention_kernel<<<row_blocks(NK, H * W), ROW_THREADS, 0,
+                         (cudaStream_t)stream>>>(
+      parent_rows, (const bf16*)h, (const bf16*)scene, (bf16*)h2, NK, H, W, D,
+      C);
+  return (int)cudaGetLastError();
+}
+
+int mv_gate_lstm(const int* prev_ids, const int* parent_rows,
+                 const void* emb_table, const void* h2, const void* c,
+                 const void* cell_w, const float* cell_b, void* h_out,
+                 void* c_out, int NK, int H, int W, int D, int E,
+                 float forget_bias, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gate_lstm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)GATE_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long long M = (long long)NK * H * W;
+  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(D / DT));
+  gate_lstm_kernel<<<grid, THREADS, GATE_SMEM, (cudaStream_t)stream>>>(
+      prev_ids, parent_rows, (const bf16*)emb_table, (const bf16*)h2,
+      (const bf16*)c, (const bf16*)cell_w, cell_b, (bf16*)h_out,
+      (bf16*)c_out, NK, H, W, D, E, forget_bias);
+  return (int)cudaGetLastError();
+}
+
+int mv_class_readout(const void* h_new, const void* w, int ldw, float* logits,
+                     int NK, int H, int W, int D, void* stream) {
+  class_readout_kernel<<<row_blocks(NK, H * W), ROW_THREADS,
+                         9 * D * sizeof(float), (cudaStream_t)stream>>>(
+      (const bf16*)h_new, (const bf16*)w, ldw, logits, NK, H, W, D);
+  return (int)cudaGetLastError();
+}
+
+const char* mv_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,0 +1,450 @@
+"""Multi-future inference: batched diverse-beam decode over Forking Paths
+observation trajectories.
+
+PyTorch port of the beam branch of ``multiverse_tpu/inference.py``.
+The output files keep the reference pickle contracts, so the evaluators
+of ``multiverse_tpu/eval`` read them unchanged:
+
+    output_file:    {traj_id: [num_out][T][2]}
+    save_prob_file: {traj_id: (beam_logits [1, K, T, H*W] f32,
+                               beam_logprobs [1, K] f32)}
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import pickle
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from multiverse_tpu.config import MultiverseConfig
+from multiverse_torch.data import scene as scene_lib
+from multiverse_torch.geometry import (
+    grid_centers,
+    one_hot_grid,
+    rasterize_traj_np,
+)
+from multiverse_torch.models.beam_search import (
+    BeamOutputs,
+    diverse_beam_search,
+)
+from multiverse_torch.models.multiverse import (
+    Batch,
+    greedy_decode,
+    scene_encode,
+)
+from multiverse_torch.ops import conv2d, convlstm_scan
+from multiverse_torch.ops.layers import get_activation
+
+
+# ----------------------------------------------------------- forward
+
+
+def beam_forward(
+    params,
+    batch: Batch,
+    cfg: MultiverseConfig,
+    T_pred: Optional[int] = None,
+) -> Tuple[BeamOutputs, torch.Tensor]:
+    """Encoders + diverse beam decode + greedy regression decode for the
+    single active scale. Returns (BeamOutputs, reg_out [N, T, h, w, 2])."""
+    cfg.validate()
+    T = T_pred or cfg.pred_len
+    compute_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+                     else None)
+    act = get_activation(cfg.activation)
+    N, _, T_obs = batch.obs_grid_class.shape
+    i = cfg.active_scales[0]
+    h, w = cfg.scene_grids[i]
+    sp = params["scales"][str(i)]
+
+    scene_convs = []
+    if cfg.use_scene_enc:
+        scene_convs = scene_encode(
+            params, batch.scene_feat, batch.obs_scene, cfg, compute_dtype)
+
+    obs_onehot = one_hot_grid(batch.obs_grid_class[:, i], h, w)
+    if cfg.use_scene_enc:
+        enc_in = scene_convs[i] * obs_onehot
+    else:
+        flat = obs_onehot.reshape(N * T_obs, h, w, 1)
+        emb = conv2d(sp["enc_grid_emb"], flat, activation=act,
+                     compute_dtype=compute_dtype)
+        enc_in = emb.reshape(N, T_obs, h, w, -1)
+    _, enc_last = convlstm_scan(sp["enc_class"], enc_in,
+                                compute_dtype=compute_dtype)
+
+    scene_mean = None
+    if cfg.use_scene_enc and cfg.use_gnn:
+        scene_mean = torch.mean(scene_convs[i], dim=1)
+
+    beam = diverse_beam_search(
+        sp, cfg,
+        first_input=obs_onehot[:, -1],
+        init_state=enc_last,
+        T_pred=T,
+        pred_length=batch.pred_length,
+        scene_mean=scene_mean,
+        save_states=cfg.use_single_decoder,
+        compute_dtype=compute_dtype,
+    )
+    return beam, _reg_decode(params, batch, cfg, beam, T, compute_dtype)
+
+
+def _reg_decode(params, batch, cfg, beam, T, compute_dtype):
+    N = batch.obs_grid_class.shape[0]
+    i = cfg.active_scales[0]
+    h, w = cfg.scene_grids[i]
+    sp = params["scales"][str(i)]
+    if cfg.use_single_decoder:
+        # regression read out of the best beam's decoder states
+        D = beam.states.shape[-1]
+        best_states = beam.states[:, 0].reshape(N * T, h, w, D)
+        reg = conv2d(sp["h2g_single"], best_states,
+                     compute_dtype=compute_dtype)
+        return reg.reshape(N, T, h, w, 2)
+    _, enc_reg_last = convlstm_scan(
+        sp["enc_reg"], batch.obs_grid_target_all[0],
+        compute_dtype=compute_dtype)
+    reg_out, _ = greedy_decode(
+        sp, cfg,
+        first_input=batch.obs_grid_target_all[0][:, -1],
+        init_state=enc_reg_last,
+        T_pred=T,
+        emb_name="dec_reg_emb",
+        cell_name="dec_reg",
+        h2g_name="h2g_reg",
+        use_gnn=False,
+        feedback="raw",
+        compute_dtype=compute_dtype,
+    )
+    return reg_out
+
+
+# ------------------------------------------------------------- inputs
+
+
+class MultifutureInputs(NamedTuple):
+    """Host-side arrays for one inference run (all trajectories)."""
+
+    traj_ids: List[str]
+    obs_traj: np.ndarray          # [N, T_obs, 2] float32
+    obs_grid_class: np.ndarray    # [N, S, T_obs] int32
+    obs_grid_target: List[np.ndarray]  # per scale [N, T_obs, h, w, 2]
+    obs_scene: np.ndarray         # [N, T_obs] int32
+    scene_feat: np.ndarray        # [F, SH, SW, C] uint8
+    pred_lengths: np.ndarray      # [N] int32 (max over GT futures)
+
+
+def load_multifuture_inputs(
+    traj_path: str,
+    multifuture_path: str,
+    scene_feat_path: str,
+    scene_id2name: str,
+    cfg: MultiverseConfig,
+) -> MultifutureInputs:
+    """Load Forking Paths obs TSVs + per-frame scene segmentation npys
+    (reference: code/multifuture_inference.py:158-272 ``get_inputs``)."""
+    oldid2new, num_classes = scene_lib.load_scene_id_map(scene_id2name)
+    table = scene_lib.remap_table(oldid2new)
+
+    traj_files = sorted(glob.glob(os.path.join(traj_path, "*.txt")))
+    traj_ids, obs_list, cls_list, tgt_list = [], [], [], []
+    scene_idx_list, pred_len_list = [], []
+    scene_rows: List[np.ndarray] = []
+
+    for traj_file in traj_files:
+        traj_id = os.path.splitext(os.path.basename(traj_file))[0]
+        _, _, x_agent_pid, _ = traj_id.split("_")
+        data = np.loadtxt(traj_file, delimiter="\t", dtype=np.float32)
+        frame_idxs = np.unique(data[:, 0])
+        obs = data[data[:, 1] == float(int(x_agent_pid)), 2:]
+        if len(obs) != cfg.obs_len:
+            raise ValueError(
+                f"{traj_id}: obs length {len(obs)} != {cfg.obs_len}")
+
+        cls, tgt = rasterize_traj_np(
+            obs, cfg.video_h, cfg.video_w, cfg.scene_grids)
+
+        idxs = np.zeros(cfg.obs_len, np.int32)
+        for t, fidx in enumerate(frame_idxs[:cfg.obs_len]):
+            npy = os.path.join(
+                scene_feat_path, traj_id,
+                "%s_F_%08d.npy" % (traj_id, int(fidx)))
+            idxs[t] = len(scene_rows)
+            scene_rows.append(np.load(npy))
+
+        with open(os.path.join(
+                multifuture_path, "%s.p" % traj_id), "rb") as f:
+            gt = pickle.load(f)
+        pred_len = max(len(gt[fid]["x_agent_traj"]) for fid in gt)
+
+        traj_ids.append(traj_id)
+        obs_list.append(obs)
+        cls_list.append(cls)
+        tgt_list.append(tgt)
+        scene_idx_list.append(idxs)
+        pred_len_list.append(pred_len)
+
+    scene_feat = scene_lib.scene_class_map_to_onehot(
+        np.stack(scene_rows), table, num_classes)
+    return MultifutureInputs(
+        traj_ids=traj_ids,
+        obs_traj=np.stack(obs_list),
+        obs_grid_class=np.stack(cls_list),
+        obs_grid_target=[np.stack([t[i] for t in tgt_list])
+                         for i in range(cfg.num_scales)],
+        obs_scene=np.stack(scene_idx_list),
+        scene_feat=scene_feat,
+        pred_lengths=np.asarray(pred_len_list, np.int32),
+    )
+
+
+def synthesize_multifuture_inputs(
+    cfg: MultiverseConfig,
+    num_traj: int,
+    seed: int = 0,
+    max_pred_len: int = 25,
+) -> MultifutureInputs:
+    """Random-walk inputs with the shapes of a real run, made from
+    ``seed`` with numpy (the same arrays as the JAX package's function
+    of the same name)."""
+    rnd = np.random.RandomState(seed)
+    start = rnd.uniform(
+        [cfg.video_w * 0.2, cfg.video_h * 0.2],
+        [cfg.video_w * 0.8, cfg.video_h * 0.8],
+        size=(num_traj, 1, 2))
+    steps = rnd.normal(0.0, 25.0, size=(num_traj, cfg.obs_len, 2))
+    obs = (start + np.cumsum(steps, axis=1)).astype(np.float32)
+    obs[..., 0] = np.clip(obs[..., 0], 1.0, cfg.video_w - 1.0)
+    obs[..., 1] = np.clip(obs[..., 1], 1.0, cfg.video_h - 1.0)
+
+    cls = np.zeros((num_traj, cfg.num_scales, cfg.obs_len), np.int32)
+    tgts = [np.zeros((num_traj, cfg.obs_len, h, w, 2), np.float32)
+            for (h, w) in cfg.scene_grids]
+    for n in range(num_traj):
+        c, t = rasterize_traj_np(
+            obs[n], cfg.video_h, cfg.video_w, cfg.scene_grids)
+        cls[n] = c
+        for i in range(cfg.num_scales):
+            tgts[i][n] = t[i]
+
+    F = max(1, num_traj // 2)
+    scene_feat = np.zeros(
+        (F, cfg.scene_h, cfg.scene_w, cfg.scene_class), np.uint8)
+    labels = rnd.randint(0, cfg.scene_class,
+                         size=(F, cfg.scene_h, cfg.scene_w))
+    scene_feat[
+        np.arange(F)[:, None, None],
+        np.arange(cfg.scene_h)[None, :, None],
+        np.arange(cfg.scene_w)[None, None, :],
+        labels] = 1
+    obs_scene = rnd.randint(
+        0, F, size=(num_traj, cfg.obs_len)).astype(np.int32)
+    pred_lengths = rnd.randint(
+        cfg.pred_len, max_pred_len + 1, size=num_traj).astype(np.int32)
+    return MultifutureInputs(
+        traj_ids=["scene_%04d_%d_cam1" % (n, n) for n in range(num_traj)],
+        obs_traj=obs,
+        obs_grid_class=cls,
+        obs_grid_target=tgts,
+        obs_scene=obs_scene,
+        scene_feat=scene_feat,
+        pred_lengths=pred_lengths,
+    )
+
+
+# ---------------------------------------------------------- offline run
+
+
+def make_batch(
+    inputs: MultifutureInputs,
+    idxs: np.ndarray,
+    cfg: MultiverseConfig,
+) -> Batch:
+    """A numpy Batch for the given trajectory indices. Only the scene
+    rows the batch references are packed, remapped to first-seen order
+    and zero-padded to a fixed n*T_obs rows."""
+    from multiverse_tpu import native
+
+    scale0 = cfg.active_scales[0]
+    obs_scene_old = inputs.obs_scene[idxs]
+    cap = int(obs_scene_old.size)
+    new_idx, old_rows, _ = native.remap_first_seen(
+        obs_scene_old.astype(np.int32), cap,
+        max_id=len(inputs.scene_feat) - 1)
+    table = native.gather_rows(inputs.scene_feat, old_rows, cap)
+    return Batch(
+        obs_grid_class=inputs.obs_grid_class[idxs],
+        obs_grid_target_all=(inputs.obs_grid_target[scale0][idxs],),
+        obs_scene=new_idx,
+        scene_feat=table,
+        pred_length=inputs.pred_lengths[idxs],
+    )
+
+
+def batch_to_device(batch: Batch, device: torch.device) -> Batch:
+    """Copy a numpy Batch to ``device`` (through pinned memory, without
+    waiting, when the device is a GPU)."""
+    def put(a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
+    return Batch(
+        obs_grid_class=put(batch.obs_grid_class),
+        obs_grid_target_all=tuple(put(a) for a in batch.obs_grid_target_all),
+        obs_scene=put(batch.obs_scene),
+        scene_feat=put(batch.scene_feat),
+        pred_length=None if batch.pred_length is None
+        else put(batch.pred_length),
+    )
+
+
+def reconstruct_beam_trajs(
+    beam_ids: torch.Tensor,     # [N, K, T] grid cells
+    reg_out: torch.Tensor,      # [N, T, h, w, 2] offset maps
+    centers: torch.Tensor,      # [h*w, 2]
+    center_only: bool = False,
+) -> torch.Tensor:
+    """Beam cells + offset maps -> [N, K, T, 2] absolute points
+    (center[beam_cell] + reg[t, beam_cell]), on the device."""
+    N, K, T = beam_ids.shape
+    HW = reg_out.shape[2] * reg_out.shape[3]
+    ids = beam_ids.long()
+    pts = centers[ids]                                   # [N, K, T, 2]
+    if center_only:
+        return pts.float()
+    reg = reg_out.reshape(N, T, HW, 2)
+    idx = ids.transpose(1, 2)                            # [N, T, K]
+    off = torch.gather(reg, 2, idx[..., None].expand(N, T, K, 2))
+    return (pts + off.transpose(1, 2)).float()
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device %r requested but CUDA is not available; pass "
+            "device='cpu' to run the plain PyTorch path" % str(device))
+    return device
+
+
+def run_multifuture_inference(
+    params,
+    inputs: MultifutureInputs,
+    cfg: MultiverseConfig,
+    batch_size: int = 16,
+    center_only: bool = False,
+    need_prob: bool = True,
+    prob_fetch_dtype: str = "float32",
+    device="cuda",
+) -> Tuple[Dict[str, list], Dict[str, tuple]]:
+    """Beam-decode every trajectory on ``device``; return (output_data,
+    beam_prob) in the reference pickle formats.
+
+    ``params`` is a :class:`~multiverse_torch.models.Multiverse` (moved
+    to ``device``). Trajectories are reconstructed on the device;
+    ``need_prob=False`` skips fetching the [N, K, T, H*W] beam logits
+    (``beam_prob`` is then empty). ``prob_fetch_dtype="float16"`` halves
+    the bytes of that fetch; the pickle stays f32.
+
+    Two batches are in flight: while the device decodes batch b, a
+    resolver thread waits for batch b-1's copies and packs its pickles.
+    """
+    if prob_fetch_dtype not in ("float32", "float16"):
+        raise ValueError(
+            f"prob_fetch_dtype must be float32|float16, got "
+            f"{prob_fetch_dtype!r}")
+    device = _resolve_device(device)
+    cfg = cfg.replace(use_beam_search=True).validate()
+    params = params.to(device)
+    i = cfg.active_scales[0]
+    h, w = cfg.scene_grids[i]
+    centers = torch.as_tensor(
+        grid_centers(cfg.video_h, cfg.video_w, h, w).reshape(-1, 2),
+        dtype=torch.float32, device=device)
+    N = len(inputs.traj_ids)
+    T = int(inputs.pred_lengths.max())
+    K = cfg.beam_size
+    fetch_dt = torch.float16 if prob_fetch_dtype == "float16" else None
+
+    def dispatch(batch: Batch):
+        """Enqueue one batch; return host copies and a ready event."""
+        with torch.inference_mode():
+            beam, reg_out = beam_forward(
+                params, batch_to_device(batch, device), cfg, T_pred=T)
+            outs = [reconstruct_beam_trajs(beam.ids, reg_out, centers,
+                                           center_only), beam.logprobs]
+            if need_prob:
+                lg = beam.logits
+                outs.append(lg if fetch_dt is None else lg.to(fetch_dt))
+            if device.type != "cuda":
+                return [o.numpy() for o in outs], None
+            host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                    for o in outs]
+            for dst, src in zip(host, outs):
+                dst.copy_(src, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(device))
+            return host, ready
+
+    output_data: Dict[str, list] = {}
+    beam_prob: Dict[str, tuple] = {}
+
+    def resolve(idxs, host, ready):
+        if ready is not None:
+            ready.synchronize()
+            # copy out of page-locked memory: the pickles keep views of
+            # these arrays for the whole run
+            host = [t.numpy().copy() for t in host]
+        trajs, logprobs = host[0], host[1]
+        logits = np.asarray(host[2], np.float32) if need_prob else None
+        for a, n in enumerate(idxs):
+            traj_id = inputs.traj_ids[n]
+            pred_len = int(inputs.pred_lengths[n])
+            output_data[traj_id] = [list(trajs[a, j, :pred_len])
+                                    for j in range(K)]
+            if logits is not None:
+                beam_prob[traj_id] = (logits[a:a + 1, :, :pred_len],
+                                      logprobs[a:a + 1])
+
+    futures: list = []
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        for lo in range(0, N, batch_size):
+            idxs = np.arange(lo, min(lo + batch_size, N))
+            pad = batch_size - len(idxs)
+            padded = np.concatenate([idxs, np.full(pad, idxs[-1])]) \
+                if pad else idxs
+            host, ready = dispatch(make_batch(inputs, padded, cfg))
+            futures.append(pool.submit(resolve, idxs, host, ready))
+            if len(futures) >= 2:
+                futures.pop(0).result()
+        for f in futures:
+            f.result()
+    return output_data, beam_prob
+
+
+def save_outputs(
+    output_data: Dict[str, list],
+    beam_prob: Dict[str, tuple],
+    output_file: str,
+    save_prob_file: Optional[str] = None,
+) -> None:
+    """Write the ``.traj.p`` pickle and, if asked, the ``.prob.p`` one."""
+    if save_prob_file is not None and not beam_prob:
+        raise ValueError(
+            "save_prob_file requested but beam_prob is empty — the "
+            ".prob.p contract needs need_prob=True")
+    os.makedirs(os.path.dirname(os.path.abspath(output_file)), exist_ok=True)
+    with open(output_file, "wb") as f:
+        pickle.dump(output_data, f)
+    if save_prob_file is not None:
+        os.makedirs(os.path.dirname(os.path.abspath(save_prob_file)),
+                    exist_ok=True)
+        with open(save_prob_file, "wb") as f:
+            pickle.dump(beam_prob, f)

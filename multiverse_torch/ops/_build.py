@@ -1,0 +1,109 @@
+"""Build the CUDA sources under ``multiverse_torch/csrc`` and load them.
+
+The sources are compiled at first use with ``nvcc`` for ``sm_90a``
+(Hopper) into one shared library with a plain C interface, which is
+loaded with ctypes. The library goes to ``multiverse_torch/_build/``
+under a name keyed by a hash of the sources and the flags, so an edit
+rebuilds and an unchanged tree loads the existing file. Only sources in
+the package are compiled: nothing outside the checkout is needed but
+the CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argtypes of each C entry point (all return a cudaError_t)
+_SIGNATURES = {
+    "mv_gnn_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mv_gate_lstm": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    "mv_class_readout": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
+}
+
+
+def find_nvcc() -> Optional[str]:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    return cand if os.path.exists(cand) else None
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libmultiverse_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library if it is not built yet; return its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+            "the CUDA kernels of multiverse_torch are built from "
+            "multiverse_torch/csrc at first use and need the CUDA toolkit")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            "nvcc failed (%d): %s\n%s" % (proc.returncode, " ".join(cmd),
+                                          proc.stderr))
+    # atomic: two processes building at once both succeed
+    os.replace(tmp, out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library, once."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.mv_error_string.argtypes = [ctypes.c_int]
+            lib.mv_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError("CUDA launch of %s failed: %s (%d)" % (
+            what, lib.mv_error_string(err).decode(), err))

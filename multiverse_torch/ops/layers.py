@@ -1,0 +1,83 @@
+"""Conv layers with the JAX package's layouts and inits.
+
+PyTorch port of ``multiverse_tpu/ops/layers.py`` (``get_activation``,
+``init_conv``, ``conv2d``). Activations are NHWC and kernels HWIO at
+every public function, as in the JAX package; ``conv2d`` permutes to
+PyTorch's NCHW/OIHW inside.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+
+Params = Mapping[str, torch.Tensor]
+
+# variance_scaling(2.0, "fan_in", "truncated_normal"): the stddev of a
+# unit normal truncated to [-2, 2] is this constant
+_TRUNC_STD = 0.87962566103423978
+
+
+def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """reference: code/pred_utils.py:86-94 (unknown names -> relu)."""
+    if name == "lrelu":
+        return lambda x: F.leaky_relu(x, 0.01)
+    if name == "tanh":
+        return torch.tanh
+    if name in ("identity", "linear", "none"):
+        return lambda x: x
+    return torch.relu
+
+
+def init_conv(generator: torch.Generator, in_ch: int, out_ch: int,
+              kernel: int = 3,
+              add_bias: bool = True) -> Dict[str, torch.Tensor]:
+    """Conv params: ``w`` [k, k, in, out] (HWIO), variance-scaling
+    truncated normal (scale 2, fan in); ``b`` zeros."""
+    std = math.sqrt(2.0 / (kernel * kernel * in_ch)) / _TRUNC_STD
+    w = torch.empty((kernel, kernel, in_ch, out_ch), dtype=torch.float32)
+    torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                generator=generator)
+    p = {"w": w}
+    if add_bias:
+        p["b"] = torch.zeros(out_ch, dtype=torch.float32)
+    return p
+
+
+def same_padding(size: int, kernel: int, stride: int) -> tuple:
+    """XLA ``SAME`` padding of one spatial dim as (before, after): the
+    total is split with the odd element AFTER, so a stride-2 3x3 conv
+    over an even size pads (0, 1), not (1, 1)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(
+    params: Params,
+    x: torch.Tensor,
+    stride: int = 1,
+    activation: Optional[Callable] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """SAME-padded NHWC conv with an HWIO kernel; returns f32 after the
+    activation. ``compute_dtype`` casts input and weights and keeps the
+    conv output, bias add and activation in that type, like the JAX
+    package's bf16 path."""
+    w = params["w"]
+    dtype = compute_dtype or torch.float32
+    kh, kw = w.shape[0], w.shape[1]
+    xt = x.to(dtype).permute(0, 3, 1, 2)
+    pad_h = same_padding(xt.shape[2], kh, stride)
+    pad_w = same_padding(xt.shape[3], kw, stride)
+    xt = F.pad(xt, (*pad_w, *pad_h))
+    out = F.conv2d(xt, w.to(dtype).permute(3, 2, 0, 1), stride=stride)
+    out = out.permute(0, 2, 3, 1)
+    if "b" in params:
+        out = out + params["b"].to(dtype)
+    if activation is not None:
+        out = activation(out)
+    return out.float()

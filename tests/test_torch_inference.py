@@ -1,0 +1,281 @@
+"""The port's inference slice against the JAX package on the CPU:
+``beam_forward`` in f32 (ids equal, offsets within 1e-4) and in bf16
+through the fused-step wiring (step-0 logits within 2e-2), the offline
+offline run's pickles scored by the JAX package's evaluators, the CLI, and
+the guarantees that the port never imports jax and never falls back
+from CUDA to the CPU."""
+
+import os
+import pickle
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multiverse_tpu import inference as jinf
+from multiverse_tpu.config import MultiverseConfig
+from multiverse_tpu.eval.multifuture import (
+    evaluate_multifuture_nll,
+    evaluate_multifuture_trajs,
+)
+from multiverse_tpu.models import init_params as jax_init_params
+from multiverse_torch import inference as tinf
+from multiverse_torch.bridge import params_from_jax, save_params_npz
+from multiverse_torch.cli import multifuture_inference as tcli
+from synthetic import write_multifuture_dataset
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _cfg(**kw):
+    base = dict(
+        scene_h=12, scene_w=16, scene_class=5, video_h=540, video_w=960,
+        enc_hidden_size=16, dec_hidden_size=16, scene_conv_dim=8,
+        emb_size=8, use_beam_search=True, beam_size=4, use_gnn=True,
+        use_scene_enc=True, diverse_beam=True, diverse_gamma=0.01,
+        fix_num_timestep=1, obs_len=8, pred_len=4)
+    base.update(kw)
+    return MultiverseConfig(**base).validate()
+
+
+def _params(cfg):
+    jparams = jax_init_params(jax.random.PRNGKey(1), cfg)
+    return jparams, params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jparams))
+
+
+def _batches(cfg, n=5):
+    inputs = jinf.synthesize_multifuture_inputs(cfg, n, seed=0,
+                                                max_pred_len=6)
+    jb = jax.tree_util.tree_map(
+        jnp.asarray, jinf.make_batch(inputs, np.arange(n), cfg))
+    tb = tinf.batch_to_device(tinf.make_batch(inputs, np.arange(n), cfg),
+                              torch.device("cpu"))
+    return jb, tb
+
+
+def test_synthesized_inputs_equal_jax():
+    cfg = _cfg()
+    a = jinf.synthesize_multifuture_inputs(cfg, 6, seed=3)
+    b = tinf.synthesize_multifuture_inputs(cfg, 6, seed=3)
+    assert a.traj_ids == b.traj_ids
+    for x, y in zip(a[1:], b[1:]):
+        for u, v in zip(x if isinstance(x, list) else [x],
+                        y if isinstance(y, list) else [y]):
+            np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.parametrize("kw", [{}, {"use_single_decoder": True}])
+def test_beam_forward_f32_matches_jax(kw):
+    cfg = _cfg(**kw)
+    jparams, model = _params(cfg)
+    jb, tb = _batches(cfg)
+    jbeam, jreg = jinf.beam_forward(jparams, jb, cfg, T_pred=6)
+    with torch.inference_mode():
+        tbeam, treg = tinf.beam_forward(model, tb, cfg, T_pred=6)
+    lengths = np.asarray(jb.pred_length)
+    for n, t_n in enumerate(lengths):
+        np.testing.assert_array_equal(np.asarray(jbeam.ids[n, :, :t_n]),
+                                      tbeam.ids[n, :, :t_n].numpy())
+        np.testing.assert_allclose(np.asarray(jreg[n, :t_n]),
+                                   treg[n, :t_n].numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(jbeam.logprobs),
+                               tbeam.logprobs.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_beam_forward_bf16_fused_wiring_tracks_jax(monkeypatch):
+    """bf16 with the GNN on: JAX runs its fused Pallas step in interpret
+    mode, the port its fused step's plain version (CPU tensors)."""
+    from multiverse_tpu.ops import pallas_decode
+    from multiverse_torch.models import beam_search
+    from multiverse_torch.ops import decode_step_gathered
+
+    monkeypatch.setattr(pallas_decode, "FORCE_INTERPRET_FUSED", True)
+    calls = []
+
+    def counting(*args, **kw):
+        calls.append(1)
+        return decode_step_gathered(*args, **kw)
+
+    monkeypatch.setattr(beam_search, "decode_step_gathered", counting)
+    cfg = _cfg(compute_dtype="bfloat16")
+    jparams, model = _params(cfg)
+    jb, tb = _batches(cfg)
+    jbeam, _ = jinf.beam_forward(jparams, jb, cfg, T_pred=6)
+    with torch.inference_mode():
+        tbeam, _ = tinf.beam_forward(model, tb, cfg, T_pred=6)
+    assert len(calls) == 6 and decode_step_gathered.launches == 0
+    np.testing.assert_allclose(np.asarray(jbeam.logits[:, :, 0]),
+                               tbeam.logits[:, :, 0].numpy(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_run_multifuture_inference_f32_evaluates_like_jax(tmp_path):
+    cfg = _cfg(obs_len=8)
+    jparams, model = _params(cfg)
+    rng = np.random.RandomState(0)
+    traj_p, mf_p, scene_p, id2name = write_multifuture_dataset(
+        str(tmp_path), cfg, rng, num_traj=5, num_futures=3, max_pred_len=6)
+    j_in = jinf.load_multifuture_inputs(traj_p, mf_p, scene_p, id2name, cfg)
+    t_in = tinf.load_multifuture_inputs(traj_p, mf_p, scene_p, id2name, cfg)
+    np.testing.assert_array_equal(j_in.obs_grid_class, t_in.obs_grid_class)
+    np.testing.assert_array_equal(j_in.scene_feat, t_in.scene_feat)
+
+    j_out, j_prob = jinf.run_multifuture_inference(jparams, j_in, cfg,
+                                                   batch_size=4)
+    t_out, t_prob = tinf.run_multifuture_inference(model, t_in, cfg,
+                                                   batch_size=4,
+                                                   device="cpu")
+    # the same pickled types as the JAX package writes
+    tid = j_in.traj_ids[0]
+    assert type(t_out[tid][0][0]) is type(j_out[tid][0][0])
+    assert t_out[tid][0][0].dtype == j_out[tid][0][0].dtype
+    for a, b in zip(t_prob[tid], j_prob[tid]):
+        assert a.dtype == b.dtype and a.shape == b.shape
+    paths = {}
+    for name, out, prob in (("jax", j_out, j_prob), ("torch", t_out, t_prob)):
+        paths[name] = (str(tmp_path / f"{name}.traj.p"),
+                       str(tmp_path / f"{name}.prob.p"))
+        tinf.save_outputs(out, prob, *paths[name])
+
+    def scores(name):
+        traj_file, prob_file = paths[name]
+        with open(traj_file, "rb") as f:
+            trajs = pickle.load(f)
+        with open(prob_file, "rb") as f:
+            probs = pickle.load(f)
+        h, w = cfg.scene_grids[0]
+        first = next(iter(probs.values()))
+        assert first[0].dtype == np.float32 and first[0].shape[-1] == h * w
+        return {**evaluate_multifuture_trajs(trajs, mf_p),
+                **evaluate_multifuture_nll(probs, mf_p, h, w, cfg.video_h,
+                                           cfg.video_w)}
+
+    s_jax, s_torch = scores("jax"), scores("torch")
+    assert set(s_jax) == set(s_torch)
+    for key in s_jax:
+        np.testing.assert_allclose(s_torch[key], s_jax[key], rtol=1e-4,
+                                   atol=1e-4, err_msg=key)
+
+
+@pytest.mark.parametrize("center_only", [False, True])
+def test_reconstruct_beam_trajs_matches_jax(rng, center_only):
+    from multiverse_tpu.geometry import grid_centers
+
+    ids = rng.randint(0, 48, (2, 3, 5)).astype(np.int32)
+    reg = rng.randn(2, 5, 6, 8, 2).astype(np.float32)
+    centers = grid_centers(540, 960, 6, 8).reshape(-1, 2).astype(np.float32)
+    j = jinf.reconstruct_beam_trajs(jnp.asarray(ids), jnp.asarray(reg),
+                                    jnp.asarray(centers), center_only)
+    t = tinf.reconstruct_beam_trajs(torch.from_numpy(ids),
+                                    torch.from_numpy(reg),
+                                    torch.from_numpy(centers), center_only)
+    np.testing.assert_allclose(np.asarray(j), t.numpy(), rtol=1e-6,
+                               atol=1e-4)
+
+
+def test_prob_fetch_float16_and_need_prob_false():
+    cfg = _cfg()
+    _, model = _params(cfg)
+    inputs = tinf.synthesize_multifuture_inputs(cfg, 3, seed=0,
+                                                max_pred_len=6)
+    out32, prob32 = tinf.run_multifuture_inference(model, inputs, cfg,
+                                                   batch_size=2, device="cpu")
+    out16, prob16 = tinf.run_multifuture_inference(
+        model, inputs, cfg, batch_size=2, device="cpu",
+        prob_fetch_dtype="float16")
+    bare, empty = tinf.run_multifuture_inference(
+        model, inputs, cfg, batch_size=2, device="cpu", need_prob=False)
+    assert empty == {}
+    for tid in inputs.traj_ids:
+        np.testing.assert_array_equal(np.asarray(out16[tid]),
+                                      np.asarray(out32[tid]))
+        np.testing.assert_array_equal(np.asarray(bare[tid]),
+                                      np.asarray(out32[tid]))
+        assert prob16[tid][0].dtype == np.float32
+        # f16 keeps ~3 decimal digits of the bounded class scores
+        np.testing.assert_allclose(prob16[tid][0], prob32[tid][0],
+                                   rtol=1e-3, atol=1e-3)
+    with pytest.raises(ValueError, match="prob_fetch_dtype"):
+        tinf.run_multifuture_inference(model, inputs, cfg, device="cpu",
+                                       prob_fetch_dtype="bfloat16")
+
+
+def test_cli_writes_both_pickles_and_rejects_unported_modes(tmp_path,
+                                                            capsys):
+    cfg = _cfg(obs_len=8)
+    _, model = _params(cfg)
+    npz = str(tmp_path / "params.npz")
+    save_params_npz(model, npz)
+    traj_p, mf_p, scene_p, id2name = write_multifuture_dataset(
+        str(tmp_path), cfg, np.random.RandomState(1), num_traj=3,
+        max_pred_len=6)
+    out, prob = str(tmp_path / "o.traj.p"), str(tmp_path / "o.prob.p")
+    args = [traj_p, mf_p, out, "--params_npz", npz, "--device", "cpu",
+            "--save_prob_file", prob, "--scene_feat_path", scene_p,
+            "--scene_id2name", id2name, "--num_out", "4", "--use_gnn",
+            "--use_scene_enc", "--diverse_beam", "--diverse_gamma", "0.01",
+            "--fix_num_timestep", "1", "--scene_h", "12", "--scene_w", "16",
+            "--scene_class", "5", "--video_h", "540", "--video_w", "960",
+            "--emb_size", "8", "--enc_hidden_size", "16",
+            "--dec_hidden_size", "16", "--scene_conv_dim", "8"]
+    tcli.main(args)
+    with open(out, "rb") as f:
+        trajs = pickle.load(f)
+    with open(prob, "rb") as f:
+        probs = pickle.load(f)
+    assert len(trajs) == 3 and set(probs) == set(trajs)
+    for tid, beams in trajs.items():
+        assert np.asarray(beams).shape[:1] == (4,)
+        assert probs[tid][0].shape[:2] == (1, 4)
+    for extra in (["--decode_quant", "int8a"], ["--greedy"]):
+        with pytest.raises(SystemExit, match="not ported"):
+            tcli.main(args + extra)
+    with pytest.raises(ValueError, match="do not match"):
+        tcli.main(args[:-2] + ["--scene_conv_dim", "4"])
+
+
+def test_cuda_request_raises_without_cuda():
+    """No fallback: asking for the GPU on a machine without one raises
+    instead of decoding on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    cfg = _cfg()
+    _, model = _params(cfg)
+    inputs = tinf.synthesize_multifuture_inputs(cfg, 2, seed=0,
+                                                max_pred_len=5)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tinf.run_multifuture_inference(model, inputs, cfg, device="cuda")
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import sys, numpy as np\n"
+        "import multiverse_torch\n"
+        "from multiverse_tpu.config import MultiverseConfig\n"
+        "from multiverse_torch import inference\n"
+        "from multiverse_torch.cli import multifuture_inference\n"
+        "from multiverse_torch.models import Multiverse\n"
+        "cfg = MultiverseConfig(scene_h=12, scene_w=16, scene_class=5,\n"
+        "    enc_hidden_size=16, dec_hidden_size=16, scene_conv_dim=8,\n"
+        "    emb_size=8, beam_size=3, use_gnn=True, diverse_beam=True,\n"
+        "    compute_dtype='bfloat16', use_beam_search=True).validate()\n"
+        "inp = inference.synthesize_multifuture_inputs(cfg, 3, seed=0,\n"
+        "                                              max_pred_len=13)\n"
+        "out, prob = inference.run_multifuture_inference(\n"
+        "    Multiverse.init(cfg), inp, cfg, batch_size=2, device='cpu')\n"
+        "assert len(out) == 3 and len(prob) == 3\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'jaxlib')))\n"
+        "print('JAX_MODULES', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "JAX_MODULES []" in proc.stdout
