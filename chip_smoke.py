@@ -4,23 +4,43 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
-   ``multiverse_torch/csrc`` with nvcc and prints the build time.
-2. Kernel phase: the fused decode step (``decode_step_gathered``)
-   against its plain PyTorch version on the card, in bf16, at the full
-   width of the beam decode (320 beam rows, 18x32 grid, D=256, E=32,
-   C=64, permuted parents, random ids). Fails above an absolute error
-   of 2e-2 (the tolerance of the JAX package's own kernel test). Times
-   both (median of repeated runs after warm-up, CUDA events).
-3. Slice phase: ``run_multifuture_inference`` on 32 synthetic
-   trajectories (2 batches of 16, K=20 diverse beams, T up to 25) with
-   seeded random weights, as ``mvt-torch-multifuture-inference`` runs
-   it. Writes and reads back both pickles, checks their shapes and
-   finiteness, checks that every decode step went through the kernel,
-   prints trajectories per second, and prints how many beam ids of the
-   first batch agree with a rerun through the plain version (bf16 near
-   ties may flip ids, so this number informs and does not gate).
+   ``multiverse_torch/csrc`` with nvcc (one process per source, in
+   parallel) and prints the build time and ptxas's register report.
+2. Kernel phases, at the full width of the beam decode (320 beam rows,
+   18x32 grid, D=256, E=32, C=64, the model's decoder weights, permuted
+   parents, random ids): K1 (bf16, ``decode_step_gathered``), K2 and K3
+   (``decode_step_gathered_q8``, the "int8" and "int8a" tiers, with
+   operands from ``quantize_decode_weights``), each against its plain
+   PyTorch version on the card. Fails above an absolute error of 2e-2
+   (the tolerance of the JAX package's own kernel tests). Times both
+   (medians, CUDA events) and computes each kernel's bound from the
+   run's shapes; prints each launch's device time (torch.profiler).
+   K2 and K3 also fail unless their attention launch's int8 gate inputs
+   (h2_q) equal the plain version's but for rounding ties (at least
+   0.9999 of them equal, none more than one step off).
+3. Offline phases: ``run_multifuture_inference`` as
+   ``mvt-torch-multifuture-inference`` runs it, with seeded random
+   weights, K=20 diverse beams, T up to 25: bf16 on 32 synthetic
+   trajectories (2 batches of 16; pickles written, read back and
+   checked; beam-id agreement of batch 0 with the plain version
+   printed, which informs and does not gate), then the int8 and int8a
+   tiers on the first 16. Each checks that every decode step went
+   through its kernel and prints trajectories per second.
+4. Serve phases: ``mvt-torch-serve``'s own pieces (its parser and tier
+   defaults: bf16 + int8a on cuda) build a beam ``ServingEngine``
+   (max_batch 8, T=12) and a greedy one (max_batch 32). For each, K3 is
+   first held against its plain version at the rows the engine gives
+   it (160 with permuted parents for beam, 32 with identity parents
+   for greedy); then 4 client threads send the same requests (32 beam,
+   64 greedy) over HTTP on 127.0.0.1 through each front end:
+   ``AsyncPredictionServer`` (the CLI's default), then
+   ``PredictionServer``. Checks every response, that the int8a kernel
+   ran batches x T times, and that one response equals a direct
+   forward on the same inputs; prints requests per second, p50 and max
+   latency and the batches' padding share (smoke readings: too few
+   requests for a tail percentile or a serving knee).
 
-Prints one JSON line describing the kernel, then, as its last line,
+Prints one JSON line describing the kernels, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero;
 without CUDA it exits nonzero before printing anything.
 """
@@ -30,35 +50,65 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from unittest import mock
 
 import numpy as np
 import torch
 
-from multiverse_tpu.config import MultiverseConfig
 from multiverse_torch import inference
-from multiverse_torch.models import Multiverse, beam_search
+from multiverse_torch.cli import serve
+from multiverse_torch.config import MultiverseConfig
+from multiverse_torch.models import Multiverse
 from multiverse_torch.ops import _build, conv2d, get_activation
 from multiverse_torch.ops.fused_decode import (
     decode_step_gathered,
+    decode_step_gathered_q8,
+    decode_step_gathered_q8_ref,
     decode_step_gathered_ref,
+    gate_input_q8,
+    gate_input_q8_ref,
 )
+from multiverse_torch.ops import quant as quant_ops
+from multiverse_torch.ops.quant import quantize_decode_weights
+from multiverse_torch.serving.aserver import AsyncPredictionServer
+from multiverse_torch.serving.client import PredictionClient
+from multiverse_torch.serving.engine import RawInputs, rasterize_batch
+from multiverse_torch.serving.server import PredictionServer
 
 TOL = 2e-2
-KERNEL = {
-    "name": "decode_step_gathered",
-    "route": "cuda",
-    "source": "multiverse_torch/csrc/fused_decode.cu",
-    "replaces": "multiverse_tpu/ops/pallas_decode.py:430",
+# least share of the q8 kernels' int8 gate inputs (h2_q) equal to the
+# plain version's: only rounding ties may differ. A gate input
+# requantised from a bf16 copy of h + agg, or int8a attention left in
+# bf16, would stay within TOL on h, c and logits but miss this
+H2Q_SAME_MIN = 0.9999
+# one H100 SXM at 700 W: dense tensor-core peaks and HBM rate
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+HBM_BYTES_S = 3.35e12
+KERNELS = {
+    "K1": {"name": "decode_step_gathered (bf16)", "route": "cuda",
+           "source": "multiverse_torch/csrc/fused_decode.cu",
+           "replaces": "multiverse_tpu/ops/pallas_decode.py:430"},
+    "K2": {"name": "decode_step_gathered_q8 (int8)", "route": "cuda",
+           "source": "multiverse_torch/csrc/fused_decode_q8.cu",
+           "replaces": "multiverse_tpu/ops/pallas_decode.py:885"},
+    "K3": {"name": "decode_step_gathered_q8 (int8a)", "route": "cuda",
+           "source": "multiverse_torch/csrc/fused_decode_q8.cu",
+           "replaces": "multiverse_tpu/ops/pallas_decode.py:974"},
 }
+# the README quick-start beam flags at the published widths
+QUICKSTART_FLAGS = ["--use_gnn", "--use_scene_enc", "--use_beam_search",
+                    "--beam_size", "20", "--diverse_beam",
+                    "--diverse_gamma", "0.01", "--fix_num_timestep", "1"]
 
 
-def flagship_config() -> MultiverseConfig:
+def flagship_config(**kw) -> MultiverseConfig:
     """The README quick-start beam configuration: K=20 diverse beam,
     gamma 0.01, fix_num_timestep 1, GNN and scene encoder on, bf16,
     18x32 grid, D=256, E=32, scene_conv_dim 64."""
@@ -66,7 +116,7 @@ def flagship_config() -> MultiverseConfig:
         use_gnn=True, use_scene_enc=True, use_beam_search=True,
         beam_size=20, diverse_beam=True, diverse_gamma=0.01,
         fix_num_timestep=1, compute_dtype="bfloat16",
-        beam_select="twostage").validate()
+        beam_select="twostage", **kw).validate()
 
 
 def median_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -85,57 +135,171 @@ def median_ms(fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_operands(model: Multiverse, cfg: MultiverseConfig, dev):
-    """Full-width operands in the layouts the beam search passes: the
-    model's decoder weights, random tanh-range state, permuted
-    parents."""
-    N, K = 16, cfg.beam_size
-    NK = N * K
+# ---------------------------------------------------------------- kernels
+
+
+def kernel_operands(model: Multiverse, cfg: MultiverseConfig, dev,
+                    NK: int, identity: bool = False):
+    """Full-width operands of NK decode rows in the layouts the decoders
+    pass: the model's decoder weights, random tanh-range state, parents
+    permuted (beam) or identity (greedy); and the int8 operands of
+    those weights."""
     H, W = cfg.scene_grids[0]
     HW, D = H * W, cfg.dec_hidden_size
     bf = torch.bfloat16
     sp = model["scales"]["0"]
     g = torch.Generator().manual_seed(1)
-    emb_p = sp["dec_class_emb"]
     basis = torch.eye(HW, device=dev).reshape(HW, H, W, 1)
-    emb = conv2d(emb_p, basis, activation=get_activation(cfg.activation),
-                 compute_dtype=bf)
+    emb = conv2d(sp["dec_class_emb"], basis,
+                 activation=get_activation(cfg.activation), compute_dtype=bf)
     ops = dict(
         cell_w=sp["dec_class"]["kernel"].to(bf).reshape(-1, 4 * D),
         cell_b=sp["dec_class"]["bias"].float(),
         h2g_w=sp["h2g_class"]["w"].to(bf).reshape(9, D).t(),
         prev_ids=torch.randint(0, HW, (NK,), generator=g, dtype=torch.int32),
-        parent_rows=torch.randperm(NK, generator=g).to(torch.int32),
+        parent_rows=(torch.arange(NK) if identity
+                     else torch.randperm(NK, generator=g)).to(torch.int32),
         emb_table=emb.to(bf).reshape(HW, HW, -1),
         h=(torch.rand(NK * HW, D, generator=g) * 2 - 1).to(bf),
         c=torch.randn(NK * HW, D, generator=g).to(bf),
         scene=torch.rand(NK * HW, cfg.scene_conv_dim, generator=g).to(bf),
     )
     ops = {k: v.to(dev).contiguous() for k, v in ops.items()}
-    return ops, H, W
+    quant = quantize_decode_weights(sp["dec_class"], emb)
+    return ops, quant, H, W
 
 
-def kernel_phase(model, cfg, dev) -> dict:
-    ops, H, W = kernel_operands(model, cfg, dev)
-    out = decode_step_gathered(**ops, H=H, W=W)
+def bound(ops, H, W, E, gate_type: str, attn_type: str) -> dict:
+    """Least time for one step on these inputs: the larger of the bytes
+    it must move (each input read once, each output written once) over
+    the HBM rate and its operations over the tensor-core peak of their
+    type. The embedding table counts only the rows these ids need."""
+    NK = ops["prev_ids"].shape[0]
+    D = ops["h"].shape[-1]
+    C = ops["scene"].shape[-1]
+    M = NK * H * W
+    gate_bytes = 1 if gate_type == "int8" else 2
+    n_ids = int(torch.unique(ops["prev_ids"]).numel())
+    read = (2 * M * D * 2 + M * C * 2                  # h, c, scene
+            + n_ids * H * W * E * gate_bytes           # table rows
+            + 9 * (E + D) * 4 * D * gate_bytes         # gate weights
+            + 4 * D * 4 * (2 if gate_type == "int8" else 1)   # b (, t_c)
+            + D * 9 * 2 + NK * 8)                      # readout w, ids
+    write = 2 * M * D * 2 + M * 4                      # h', c', logits
+    gate_ops = 2.0 * M * 9 * (E + D) * 4 * D
+    # nine-neighbour attention (edges + aggregation) and the readout
+    attn_ops = 2.0 * M * 9 * ((D + C) + D)
+    readout_ops = 2.0 * M * 9 * D
+    ops_s = (gate_ops / PEAK_OPS[gate_type] + attn_ops / PEAK_OPS[attn_type]
+             + readout_ops / PEAK_OPS["bf16"])
+    bytes_s = (read + write) / HBM_BYTES_S
+    return {"bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
+
+
+def launch_breakdown(what: str, fn, reps: int = 5) -> None:
+    """Prints the mean device time of each CUDA kernel one call of
+    ``fn`` launches (torch.profiler over ``reps`` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    ref = decode_step_gathered_ref(**ops, H=H, W=W)
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", 0)
+        if us > 0 and evt.count >= reps:
+            # "void (anonymous namespace)::gate_lstm_kernel<...>(...)"
+            found = re.search(r"(\w+)(?:<[^>]*>)?\(", evt.key)
+            print("kernel phase %s: launch %s %.4f ms (%d per call)"
+                  % (what, found.group(1) if found else evt.key,
+                     us / reps / 1e3, evt.count // reps))
+
+
+def check_close(what: str, out, ref) -> float:
     errs = {name: float((a.float() - b.float()).abs().max())
             for name, a, b in zip(("h", "c", "logits"), out, ref)}
-    print("kernel phase: max abs err vs plain (bf16, NK=%d, %dx%d):"
-          % (ops["prev_ids"].shape[0], H, W), errs)
+    print(f"kernel phase {what}: max abs err vs plain:", errs)
     for name, err in errs.items():
         if not err <= TOL:
             raise AssertionError(
-                f"kernel disagrees with the plain version on {name}: "
+                f"{what} disagrees with the plain version on {name}: "
                 f"max abs err {err} > {TOL}")
+    return max(errs.values())
+
+
+def check_q8(what: str, quant, q8: dict, H: int, W: int, attn_q8: bool):
+    """K2 (int8) or K3 (int8a) against its plain version on the same
+    card tensors: h, c and logits within TOL, and the int8 gate inputs
+    (h2_q) of the attention launch equal to the plain version's but for
+    rounding ties, which move an entry by one step. Returns the step
+    (to time), its max abs err and the share of equal gate inputs."""
+    def run(fn=decode_step_gathered_q8):
+        return fn(quant, **q8, H=H, W=W, attn_q8=attn_q8)
+    out = run()
+    torch.cuda.synchronize()
+    err = check_close(what, out, run(decode_step_gathered_q8_ref))
+    args = (q8["parent_rows"], q8["h"], q8["scene"], H, W, attn_q8)
+    diff = gate_input_q8(*args).int() - gate_input_q8_ref(*args).int()
+    same = float((diff == 0).float().mean())
+    print("kernel phase %s: int8 gate inputs equal to the plain version's: "
+          "%.6f (max step %d)" % (what, same, int(diff.abs().max())))
+    if int(diff.abs().max()) > 1 or not same >= H2Q_SAME_MIN:
+        raise AssertionError(
+            f"{what}: the int8 gate inputs differ from the plain version's "
+            f"beyond rounding ties: {same} equal (at least {H2Q_SAME_MIN}),"
+            f" max step {int(diff.abs().max())} (at most 1)")
+    return run, err, same
+
+
+def kernel_phase(model, cfg, dev) -> dict:
+    ops, quant, H, W = kernel_operands(model, cfg, dev,
+                                       NK=16 * cfg.beam_size)
+    E = ops["emb_table"].shape[-1]
+    NK = ops["prev_ids"].shape[0]
+    D = ops["h"].shape[-1]
+    print("kernel phase: NK=%d, %dx%d, D=%d, E=%d, C=%d"
+          % (NK, H, W, D, E, ops["scene"].shape[-1]))
+    stats = {}
+
+    out = decode_step_gathered(**ops, H=H, W=W)
+    torch.cuda.synchronize()
+    err = check_close("K1", out, decode_step_gathered_ref(**ops, H=H, W=W))
     ms = median_ms(lambda: decode_step_gathered(**ops, H=H, W=W), reps=30)
     plain_ms = median_ms(lambda: decode_step_gathered_ref(**ops, H=H, W=W),
-                         reps=20)
-    print("kernel phase: kernel %.4f ms, plain %.4f ms (median)"
-          % (ms, plain_ms))
-    return {"max_abs_err": max(errs.values()), "ms": ms,
-            "plain_ms": plain_ms}
+                         reps=10)
+    # information only: cuDNN's bf16 conv2d of the gate product alone
+    # (no attention, no gather, no LSTM) is not a call that computes K1
+    x = torch.randn(NK, E + D, H, W, device=dev, dtype=torch.bfloat16)
+    w = ops["cell_w"].reshape(3, 3, E + D, 4 * D).permute(3, 2, 0, 1) \
+        .contiguous()
+    conv_ms = median_ms(
+        lambda: torch.nn.functional.conv2d(x, w, padding=1), reps=30)
+    stats["K1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=None, **bound(ops, H, W, E, "bf16", "bf16"))
+    print("kernel phase K1: kernel %.4f ms, plain %.4f ms, bound %.4f ms; "
+          "cuDNN bf16 conv2d of the gate product alone %.4f ms"
+          % (ms, plain_ms, stats["K1"]["bound_ms"], conv_ms))
+    launch_breakdown("K1", lambda: decode_step_gathered(**ops, H=H, W=W))
+
+    q8 = {k: v for k, v in ops.items() if k not in ("cell_w", "emb_table")}
+    for name, attn_q8 in (("K2", False), ("K3", True)):
+        run, err, _ = check_q8(name, quant, q8, H, W, attn_q8)
+        ms = median_ms(run, reps=30)
+        plain_ms = median_ms(lambda: run(decode_step_gathered_q8_ref),
+                             reps=5)
+        stats[name] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+            **bound(ops, H, W, E, "int8", "int8" if attn_q8 else "bf16"))
+        print("kernel phase %s: kernel %.4f ms, plain %.4f ms, bound %.4f "
+              "ms" % (name, ms, plain_ms, stats[name]["bound_ms"]))
+        launch_breakdown(name, run)
+    return stats
+
+
+# ---------------------------------------------------------------- offline
 
 
 def check_pickles(out, prob, inputs, cfg) -> None:
@@ -164,13 +328,20 @@ def check_pickles(out, prob, inputs, cfg) -> None:
             raise AssertionError(f"{tid}: beam logprobs {logprobs.shape}")
 
 
-def slice_phase(model, cfg, dev) -> int:
-    inputs = inference.synthesize_multifuture_inputs(cfg, 32, seed=0)
+def reset_launches() -> None:
+    decode_step_gathered.launches = 0
+    decode_step_gathered_q8.launches = {"int8": 0, "int8a": 0}
+
+
+def offline_run(model, cfg, inputs, dev, tier: str) -> int:
+    """One tier of the offline path: a counted first run whose pickles
+    are checked, then a timed second one. Returns the kernel launches
+    of the first run."""
+    cfg = cfg.replace(decode_quant=tier)
     batch_size = 16
     T = int(inputs.pred_lengths.max())
     n_batches = -(-len(inputs.traj_ids) // batch_size)
-
-    decode_step_gathered.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out, prob = inference.run_multifuture_inference(
@@ -178,29 +349,37 @@ def slice_phase(model, cfg, dev) -> int:
         device=dev)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = decode_step_gathered.launches
-    print("slice phase: %d trajectories, %d batches, T=%d, %d kernel "
-          "launches, first run %.3f s" % (len(inputs.traj_ids), n_batches,
-                                          T, launches, first_s))
+    launches = (decode_step_gathered.launches if tier == "none"
+                else decode_step_gathered_q8.launches[tier])
+    print("offline %s: %d trajectories, %d batches, T=%d, %d kernel "
+          "launches, first run %.3f s" % (tier, len(inputs.traj_ids),
+                                          n_batches, T, launches, first_s))
     if launches != n_batches * T:
-        raise AssertionError(f"the decode ran {launches} kernel steps, "
-                             f"expected {n_batches} x {T}")
+        raise AssertionError(f"the {tier} decode ran {launches} kernel "
+                             f"steps, expected {n_batches} x {T}")
     check_pickles(out, prob, inputs, cfg)
-
     t0 = time.perf_counter()
     inference.run_multifuture_inference(
         model, inputs, cfg, batch_size=batch_size, need_prob=True,
         device=dev)
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t0
-    print("slice phase: %.2f traj/s (second run, %.3f s, .traj.p and "
-          ".prob.p outputs)" % (len(inputs.traj_ids) / steady_s, steady_s))
+    print("offline %s: %.2f traj/s (second run, %.3f s, .traj.p and "
+          ".prob.p outputs)" % (tier, len(inputs.traj_ids) / steady_s,
+                                steady_s))
+    return launches
 
+
+def id_agreement(model, cfg, inputs, dev) -> None:
+    """Beam ids of batch 0 through the kernel and through the plain
+    version (information: bf16 near-ties flip ids)."""
+    batch_size = 16
+    T = int(inputs.pred_lengths.max())
     batch = inference.batch_to_device(
         inference.make_batch(inputs, np.arange(batch_size), cfg), dev)
     with torch.inference_mode():
         beam_k, _ = inference.beam_forward(model, batch, cfg, T_pred=T)
-        with mock.patch.object(beam_search, "decode_step_gathered",
+        with mock.patch.object(quant_ops, "decode_step_gathered",
                                decode_step_gathered_ref):
             beam_p, _ = inference.beam_forward(model, batch, cfg, T_pred=T)
     lengths = batch.pred_length.cpu().numpy()
@@ -210,9 +389,158 @@ def slice_phase(model, cfg, dev) -> int:
         for n in range(batch_size)]))
     step0 = float((beam_k.logits[:, :, 0] - beam_p.logits[:, :, 0])
                   .abs().max())
-    print("slice phase: beam ids of batch 0 agreeing with the plain "
+    print("offline none: beam ids of batch 0 agreeing with the plain "
           "version: %.4f; step-0 logits max abs diff %.3g" % (agree, step0))
+
+
+# ------------------------------------------------------------------ serve
+
+
+def direct_trajs(engine, cfg, obs, pred_len: int) -> np.ndarray:
+    """A direct forward of one request, in every row of a batch of the
+    engine's shape: [K, pred_len, 2] points (greedy: the one future).
+    The beam order depends on pred_len (finished beams freeze)."""
+    dev = engine.device
+    B, T = engine.max_batch, engine.T_pred
+    raw = RawInputs(
+        obs_xy=torch.as_tensor(np.tile(obs[None], (B, 1, 1)), device=dev),
+        obs_scene=torch.arange(B * cfg.obs_len, dtype=torch.int32,
+                               device=dev).reshape(B, cfg.obs_len),
+        scene_feat=engine._default_scene,
+        pred_length=torch.full((B,), pred_len, dtype=torch.int32,
+                               device=dev))
+    with torch.inference_mode():
+        batch = rasterize_batch(raw, cfg, engine._centers_hw)
+        if engine.greedy:
+            logits, reg = inference.greedy_forward(engine._params, batch,
+                                                   cfg, T_pred=T)
+            trajs = inference.reconstruct_greedy_trajs(
+                logits, reg, engine._centers)[:1]
+        else:
+            beam, reg = inference.beam_forward(engine._params, batch, cfg,
+                                               T_pred=T)
+            trajs = inference.reconstruct_beam_trajs(
+                beam.ids, reg, engine._centers)[0]
+    return trajs[:, :pred_len].cpu().numpy()
+
+
+def serve_burst(engine, cfg, server, what: str, obs, pred_lens,
+                n_threads: int) -> int:
+    """Sends every request from ``n_threads`` client threads over HTTP;
+    checks the responses and that every batch ran T int8a kernel steps.
+    Returns the int8a kernel launches of the burst."""
+    n_requests = len(obs)
+    results = [None] * n_requests
+    errors = []
+
+    def client(k):
+        cl = PredictionClient(port=server.port, binary=True)
+        try:
+            for n in range(k, n_requests, n_threads):
+                results[n] = cl.predict(obs[n], pred_len=pred_lens[n])
+        except Exception as exc:   # re-raised below
+            errors.append(exc)
+        finally:
+            cl.close()
+
+    engine.stats.reset()
+    reset_launches()
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = decode_step_gathered_q8.launches["int8a"]
+    stats = engine.stats.snapshot()
+    if errors:
+        raise errors[0]
+    for n, r in enumerate(results):
+        shape = (cfg.beam_size, int(pred_lens[n]), 2)
+        if r["trajs"].shape != shape or r["pred_len"] != pred_lens[n] \
+                or not np.isfinite(r["trajs"]).all() \
+                or not np.isfinite(r["logprobs"]).all():
+            raise AssertionError(f"{what} response {n}: "
+                                 f"{r['trajs'].shape}, expected {shape}")
+    if launches != stats["batches"] * engine.T_pred:
+        raise AssertionError(
+            f"{what}: the int8a kernel ran {launches} steps for "
+            f"{stats['batches']} batches x T={engine.T_pred}")
+    want = direct_trajs(engine, cfg, obs[0], int(pred_lens[0]))
+    diff = float(np.abs(results[0]["trajs"] - want).max())
+    # a smoke reading, not a serving metric: too few requests for a
+    # tail percentile (the max is given), batches mostly padding
+    padding = 1.0 - stats["requests"] / (stats["batches"] * engine.max_batch)
+    print("serve %s: max_batch %d, T=%d, %d requests from %d threads in "
+          "%.3f s: %.2f req/s; latency p50 %s ms, p99 %s ms, max %s ms "
+          "(under 100 requests p99 is the max); %d batches, padding share "
+          "%.4f; %d int8a launches; served vs direct forward: max abs diff "
+          "%.3g px"
+          % (what, engine.max_batch, engine.T_pred, n_requests, n_threads,
+             wall, n_requests / wall, stats.get("p50_latency_ms"),
+             stats.get("p99_latency_ms"), stats["max_latency_ms"],
+             stats["batches"], padding, launches, diff))
+    if not diff <= 1e-3:
+        raise AssertionError(f"{what}: a served result differs from a "
+                             f"direct forward by {diff} px")
     return launches
+
+
+def serve_phase(flags, dev, greedy: bool, n_requests: int,
+                n_threads: int = 4) -> int:
+    """Serve requests over HTTP through mvt-torch-serve's engine and
+    both of its front ends (asyncio, its default, then threads); returns
+    the int8a kernel launches of the traffic. Before the traffic, K3 is
+    held against its plain version at the rows the engine gives it."""
+    argv = ["out", "model", "--random_init", "--port", "0", *flags] \
+        + (["--greedy"] if greedy else [])
+    args = serve.build_parser().parse_args(argv)
+    args.compute_dtype, args.decode_quant = serve.resolve_serving_dtypes(
+        dev.type, args.compute_dtype, args.decode_quant)
+    args.max_batch = serve.resolve_max_batch(args.max_batch, args.greedy)
+    cfg = serve.config_from_args(args).replace(
+        use_beam_search=not greedy).validate()
+    if (cfg.compute_dtype, cfg.decode_quant) != ("bfloat16", "int8a"):
+        raise AssertionError("the serving tier on cuda must be bf16 + int8a")
+    engine = serve.ServingEngine(
+        serve.load_model(args, cfg), cfg, max_batch=args.max_batch,
+        max_delay_ms=args.max_delay_ms, device=dev)
+    what = "greedy" if greedy else "beam"
+    try:
+        warm_s = engine.warmup()
+        # greedy decodes one row per request with identity parents, beam
+        # K rows per request with parents permuted
+        NK = engine.max_batch * (1 if greedy else cfg.beam_size)
+        ops, quant, H, W = kernel_operands(engine._params, cfg, dev, NK,
+                                           identity=greedy)
+        q8 = {k: v for k, v in ops.items()
+              if k not in ("cell_w", "emb_table")}
+        check_q8("K3 at serve %s's %d rows" % (what, NK), quant, q8, H, W,
+                 attn_q8=True)
+        print("serve %s: warm-up %.3f s" % (what, warm_s))
+        rng = np.random.RandomState(3)
+        obs = [np.stack([rng.uniform(0, cfg.video_w, cfg.obs_len),
+                         rng.uniform(0, cfg.video_h, cfg.obs_len)],
+                        axis=1).astype(np.float32)
+               for _ in range(n_requests)]
+        pred_lens = rng.randint(1, engine.T_pred + 1, n_requests)
+        launches = 0
+        for backend, server_cls in (("asyncio", AsyncPredictionServer),
+                                    ("threads", PredictionServer)):
+            server = server_cls(engine, host=args.host, port=0)
+            server.start_background()
+            try:
+                launches += serve_burst(
+                    engine, cfg, server, f"{what} ({backend})", obs,
+                    pred_lens, n_threads)
+            finally:
+                server.close(close_engine=False)
+        return launches
+    finally:
+        engine.close()
 
 
 def main() -> int:
@@ -231,13 +559,34 @@ def main() -> int:
     _build.load_library()
     print("kernel build + load: %.1f s (%s)"
           % (time.perf_counter() - t0, _build.library_path().name))
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print("  ptxas:", line.strip())
 
     cfg = flagship_config()
     model = Multiverse.init(cfg, seed=0, device=dev)
     stats = kernel_phase(model, cfg, dev)
-    launches = slice_phase(model, cfg, dev)
 
-    print(json.dumps({"kernels": [dict(KERNEL, launches=launches, **stats)]}))
+    inputs = inference.synthesize_multifuture_inputs(cfg, 32, seed=0)
+    first16 = inputs._replace(
+        traj_ids=inputs.traj_ids[:16],
+        obs_traj=inputs.obs_traj[:16],
+        obs_grid_class=inputs.obs_grid_class[:16],
+        obs_grid_target=[t[:16] for t in inputs.obs_grid_target],
+        obs_scene=inputs.obs_scene[:16],
+        pred_lengths=inputs.pred_lengths[:16])
+    launches = {"K1": offline_run(model, cfg, inputs, dev, "none")}
+    id_agreement(model, cfg, inputs, dev)
+    launches["K2"] = offline_run(model, cfg, first16, dev, "int8")
+    launches["K3"] = offline_run(model, cfg, first16, dev, "int8a")
+    launches["K3"] += serve_phase(QUICKSTART_FLAGS, dev, greedy=False,
+                                  n_requests=32)
+    launches["K3"] += serve_phase(QUICKSTART_FLAGS, dev, greedy=True,
+                                  n_requests=64)
+
+    print(json.dumps({"kernels": [
+        dict(KERNELS[k], launches=launches[k], **stats[k])
+        for k in ("K1", "K2", "K3")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

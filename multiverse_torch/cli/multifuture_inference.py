@@ -1,7 +1,9 @@
 """Multi-future inference command (PyTorch): Forking Paths obs -> K
 trajectories.
 
-Same flags and output pickles as ``mvt-multifuture-inference``, with
+Same flags and output pickles as ``mvt-multifuture-inference``
+(``--greedy`` decodes one future and writes it ``--num_out`` times;
+``--decode_quant int8|int8a`` runs the int8 tiers' kernels), with
 two changes: weights come from ``--params_npz`` (a flat npz written by
 ``multiverse_torch.bridge.save_params_npz``) instead of an orbax
 checkpoint directory, and ``--device`` picks the device (default cuda).
@@ -13,7 +15,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from multiverse_tpu.config import MultiverseConfig
+from multiverse_torch.config import MultiverseConfig
 from multiverse_torch.bridge import check_params, load_params_npz
 from multiverse_torch.inference import (
     load_multifuture_inputs,
@@ -65,7 +67,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--batch_size", type=int, default=16)
     parser.add_argument("--compute_dtype", default="bfloat16")
     parser.add_argument("--decode_quant", default="none",
-                        choices=["none", "int8", "int8a", "int8_dyn"])
+                        choices=["none", "int8", "int8a", "int8_dyn"],
+                        help="int8 tier of the fused decode step (with "
+                             "--compute_dtype bfloat16): 'int8' int8 gate "
+                             "product, 'int8a' int8 attention too; "
+                             "'int8_dyn' is not ported yet")
     parser.add_argument("--beam_select", default="twostage",
                         choices=["twostage", "dense"])
     return parser
@@ -74,13 +80,14 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     prog = "mvt-torch-multifuture-inference"
-    if args.greedy:
-        raise SystemExit(f"{prog}: --greedy is not ported yet; the port "
-                         "runs the beam search only")
-    if args.decode_quant != "none":
-        raise SystemExit(f"{prog}: --decode_quant {args.decode_quant} needs "
-                         "the int8 decode kernels, which are not ported yet; "
-                         "use --decode_quant none")
+    if args.decode_quant == "int8_dyn":
+        raise SystemExit(f"{prog}: --decode_quant int8_dyn needs the "
+                         "dynamic-scale int8 kernel (K7), which is not "
+                         "ported yet; use int8 or int8a")
+    if args.greedy and args.save_prob_file:
+        # greedy has no beams, so the .prob.p contract cannot be produced
+        raise SystemExit(f"{prog}: --save_prob_file requires beam search; "
+                         "drop --greedy")
     cfg = MultiverseConfig(
         obs_len=args.obs_length,
         emb_size=args.emb_size,
@@ -100,11 +107,12 @@ def main(argv=None) -> None:
         video_h=args.video_h,
         video_w=args.video_w,
         beam_size=args.num_out,
-        use_beam_search=True,
+        use_beam_search=not args.greedy,
         diverse_beam=args.diverse_beam,
         diverse_gamma=args.diverse_gamma,
         fix_num_timestep=args.fix_num_timestep,
         compute_dtype=args.compute_dtype,
+        decode_quant=args.decode_quant,
         beam_select=args.beam_select,
         **MultiverseConfig.parse_strides(args.grid_strides, args.use_grids),
     ).validate()
@@ -126,6 +134,7 @@ def main(argv=None) -> None:
     output_data, beam_prob = run_multifuture_inference(
         model, inputs, cfg,
         batch_size=args.batch_size,
+        greedy=args.greedy,
         center_only=args.center_only,
         need_prob=args.save_prob_file is not None,
         prob_fetch_dtype=args.prob_fetch_dtype,

@@ -1,0 +1,183 @@
+"""Online prediction server (PyTorch): ``mvt-torch-serve``.
+
+Serves HTTP predictions through the dynamic-batching engine
+(``multiverse_torch/serving/engine.py``) with the same flags as the JAX
+package's ``mvt-serve``, except:
+
+* weights come from ``--params_npz`` (a flat npz written by
+  ``multiverse_torch.bridge.save_params_npz``) or ``--random_init``;
+  ``--load_from``, the checkpoint-directory path and ``--reload_poll_s``
+  need the orbax checkpoint reader, which is not ported yet, and are
+  refused;
+* ``--device`` picks the device (default cuda); ``--num_devices`` other
+  than 1 is refused (one device only).
+
+    mvt-torch-serve out model --random_init --use_gnn --use_scene_enc \\
+        --use_beam_search --beam_size 20 --diverse_beam
+
+On ``cuda`` with neither --compute_dtype nor --decode_quant given, it
+serves in bf16 with the int8a decode tier. max_batch defaults to 8 for
+beam and 32 for --greedy (the JAX package's defaults).
+"""
+
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+import threading
+
+import torch
+
+from multiverse_torch.bridge import check_params, load_params_npz
+from multiverse_torch.cli.common import add_model_args, config_from_args
+from multiverse_torch.models import Multiverse
+from multiverse_torch.serving.engine import ServingEngine
+from multiverse_torch.serving.server import PredictionServer
+
+PROG = "mvt-torch-serve"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    parser.add_argument("outbasepath", type=str)
+    parser.add_argument("modelname", type=str)
+    parser.add_argument("--runId", type=int, default=0)
+    parser.add_argument("--load_best", action="store_true")
+    parser.add_argument("--load_from", type=str, default=None,
+                        help="orbax checkpoint (not ported: refused)")
+    parser.add_argument("--params_npz", type=str, default=None,
+                        help="weights as a flat npz ('/'-joined names)")
+    parser.add_argument("--random_init", action="store_true",
+                        help="serve seeded random weights (smoke tests)")
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--host", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8500)
+    parser.add_argument("--max_batch", type=int, default=None,
+                        help="dynamic-batch cap (default: 8 for beam, "
+                             "32 for --greedy)")
+    parser.add_argument("--max_delay_ms", type=float, default=5.0)
+    parser.add_argument("--max_queue", type=int, default=None,
+                        help="bound on queued (not yet batched) "
+                             "requests; when full, new requests get "
+                             "503 + Retry-After (default: unbounded)")
+    parser.add_argument("--num_devices", type=int, default=1,
+                        help="devices to serve across; only 1 is ported")
+    parser.add_argument("--T_pred", type=int, default=None)
+    parser.add_argument("--greedy", action="store_true",
+                        help="greedy single-future decode instead of "
+                             "diverse beam")
+    parser.add_argument("--server_backend", default="asyncio",
+                        choices=("asyncio", "threads"),
+                        help="HTTP front end: one-event-loop asyncio "
+                             "(default) or the ThreadingHTTPServer")
+    parser.add_argument("--reload_poll_s", type=float, default=0.0,
+                        help="checkpoint hot reload (not ported: "
+                             "refused when > 0)")
+    add_model_args(parser)
+    # None-sentinel defaults: argparse records whether the user gave
+    # these flags (in any spelling it accepts, prefixes included), so
+    # the device tier default below never re-derives it from argv
+    parser.set_defaults(compute_dtype=None, decode_quant=None)
+    return parser
+
+
+def resolve_serving_dtypes(device_type: str, compute_dtype, decode_quant):
+    """The serving tier: on ``cuda`` with neither flag given, bf16 with
+    the int8a decode tier (the JAX package's accelerator default);
+    otherwise the given flags, the un-given one at its library default
+    (f32, no quantisation). ``None`` means the flag was not given.
+    Returns ``(compute_dtype, decode_quant)``."""
+    if device_type == "cuda" and compute_dtype is None \
+            and decode_quant is None:
+        return "bfloat16", "int8a"
+    return compute_dtype or "float32", decode_quant or "none"
+
+
+def resolve_max_batch(max_batch, greedy: bool) -> int:
+    """The JAX package's tier defaults: 8 for beam, 32 for greedy."""
+    if max_batch is not None:
+        return max_batch
+    return 32 if greedy else 8
+
+
+def load_model(args, cfg) -> Multiverse:
+    """The served weights: ``--params_npz`` or ``--random_init``."""
+    if args.load_from is not None or args.reload_poll_s > 0:
+        raise SystemExit(
+            f"{PROG}: --load_from and --reload_poll_s need the orbax "
+            "checkpoint reader, which is not ported yet; pass "
+            "--params_npz or --random_init")
+    model = Multiverse.init(cfg, seed=0)
+    if args.params_npz is not None:
+        loaded = load_params_npz(args.params_npz)
+        check_params(loaded, model)
+        return loaded
+    if not args.random_init:
+        raise SystemExit(
+            f"{PROG}: reading the run's checkpoint directory needs the "
+            "orbax checkpoint reader, which is not ported yet; pass "
+            "--params_npz or --random_init")
+    return model
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    if args.num_devices != 1:
+        raise SystemExit(f"{PROG}: --num_devices {args.num_devices}: "
+                         "serving across devices is not ported yet")
+    if args.decode_quant == "int8_dyn":
+        raise SystemExit(f"{PROG}: --decode_quant int8_dyn needs the "
+                         "dynamic-scale int8 kernel (K7), which is not "
+                         "ported yet; use int8 or int8a")
+    args.compute_dtype, args.decode_quant = resolve_serving_dtypes(
+        torch.device(args.device).type, args.compute_dtype,
+        args.decode_quant)
+    args.max_batch = resolve_max_batch(args.max_batch, args.greedy)
+    cfg = config_from_args(args).replace(
+        use_beam_search=not args.greedy).validate()
+    model = load_model(args, cfg)
+
+    engine = ServingEngine(
+        model, cfg, max_batch=args.max_batch,
+        max_delay_ms=args.max_delay_ms, T_pred=args.T_pred,
+        max_queue=args.max_queue, device=args.device)
+    print(f"{PROG}: warming up (batch={args.max_batch}, "
+          f"T={engine.T_pred}, beam={cfg.beam_size}, "
+          f"dtype={cfg.compute_dtype}, quant={cfg.decode_quant}, "
+          f"device={engine.device})...", file=sys.stderr)
+    dt = engine.warmup()
+    print(f"{PROG}: warm in {dt:.1f}s", file=sys.stderr)
+
+    if args.server_backend == "asyncio":
+        from multiverse_torch.serving.aserver import AsyncPredictionServer
+
+        server = AsyncPredictionServer(engine, host=args.host,
+                                       port=args.port)
+        server.start_background()   # binds + reports the port
+    else:
+        server = PredictionServer(engine, host=args.host, port=args.port)
+    print(f"{PROG}: listening on http://{args.host}:{server.port} "
+          f"({args.server_backend})", file=sys.stderr)
+
+    def _sigterm(*_):
+        # containers stop with SIGTERM: drain and close instead of
+        # dying mid-batch with waiters stranded
+        raise SystemExit(0)
+
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, _sigterm)
+    try:
+        if args.server_backend == "asyncio":
+            server.wait()
+        else:
+            server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -11,7 +11,9 @@
 //      kernel forms the dense [HW, HW] edge tile (1.3 MB in f32 at
 //      18x32), far beyond a block's 227 KB of shared memory. The mask is
 //      the 3x3 neighbourhood and exp(-1e30) is 0 in f32, so the softmax
-//      over the 9 neighbours is exact. Writes h2 = bf16(h + agg).
+//      over the 9 neighbours is exact. Writes h2 = bf16(h + agg); the
+//      int8 tier's step (fused_decode_q8.cu) uses the same launch with
+//      the int8 gate input quantize_h2(h + agg) as its output.
 //   2. gate_lstm_kernel       implicit-GEMM 3x3 conv: M = NK*HW pixels,
 //      K = 9*(E+D), N = 4*D gates, bf16 wmma with f32 accumulation,
 //      3-stage cp.async pipeline. A block's 128 gate columns are the
@@ -29,50 +31,15 @@
 // Plain C interface, bound from Python with ctypes; every function
 // returns the cudaError_t of its launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float2 load_bf16x2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
 // ---------------------------------------------------------------- 1. GNN
-
-// Sum of squares of node = h_row (+) scene_row, over the warp.
-__device__ float node_sumsq(const bf16* hq, const bf16* sq, int D, int C,
-                            int lane) {
-  float s = 0.f;
-  for (int k = 2 * lane; k < D; k += 64) {
-    float2 v = load_bf16x2(hq + k);
-    s += v.x * v.x + v.y * v.y;
-  }
-  for (int k = 2 * lane; k < C; k += 64) {
-    float2 v = load_bf16x2(sq + k);
-    s += v.x * v.x + v.y * v.y;
-  }
-  return warp_sum(s);
-}
 
 // Dot product of the two bf16-rounded normalised nodes, f32 accumulation.
 __device__ float node_dot(const bf16* hp, const bf16* sp, float inv_p,
@@ -92,11 +59,15 @@ __device__ float node_dot(const bf16* hp, const bf16* sp, float inv_p,
   return warp_sum(s);
 }
 
+// kQ8Out = false (K1): writes h2 = bf16(h + agg).
+// kQ8Out = true (the int8 tier, K2): writes the gate input
+// quantize_h2(h + agg) from the f32 sum, never from a bf16 copy.
+template <bool kQ8Out>
 __global__ void __launch_bounds__(256)
 gnn_attention_kernel(const int* __restrict__ parent_rows,
                      const bf16* __restrict__ h,      // [*, HW, D] old order
                      const bf16* __restrict__ scene,  // [NK, HW, C] or null
-                     bf16* __restrict__ h2,           // [NK, HW, D] new order
+                     void* __restrict__ h2,           // [NK, HW, D] new order
                      int NK, int H, int W, int D, int C) {
   const int lane = threadIdx.x & 31;
   const long long item =
@@ -109,13 +80,8 @@ gnn_attention_kernel(const int* __restrict__ parent_rows,
   const bf16* hrow = h + (long long)parent_rows[r] * HW * D;
   const bf16* srow = scene ? scene + (long long)r * HW * C : nullptr;
 
-  // neighbour offsets in (dy, dx) order; -1 marks a padded position
   int q[9];
-#pragma unroll
-  for (int s = 0; s < 9; ++s) {
-    const int yy = y + s / 3 - 1, xx = x + s % 3 - 1;
-    q[s] = (yy >= 0 && yy < H && xx >= 0 && xx < W) ? yy * W + xx : -1;
-  }
+  neighbours(y, x, H, W, q);
   const bf16* hp = hrow + (long long)p * D;
   const bf16* sp = srow ? srow + (long long)p * C : nullptr;
   const float inv_p =
@@ -144,7 +110,6 @@ gnn_attention_kernel(const int* __restrict__ parent_rows,
 #pragma unroll
   for (int s = 0; s < 9; ++s) e[s] = q[s] < 0 ? 0.f : round_bf16(e[s] / total);
 
-  bf16* out = h2 + item * D;
   for (int k = 2 * lane; k < D; k += 64) {
     float ax = 0.f, ay = 0.f;
 #pragma unroll
@@ -155,8 +120,14 @@ gnn_attention_kernel(const int* __restrict__ parent_rows,
       ay += e[s] * v.y;
     }
     float2 own = load_bf16x2(hp + k);
-    *reinterpret_cast<__nv_bfloat162*>(out + k) =
-        __floats2bfloat162_rn(own.x + ax, own.y + ay);
+    if constexpr (kQ8Out) {
+      *reinterpret_cast<char2*>(static_cast<signed char*>(h2) + item * D + k) =
+          make_char2(quantize_h2(own.x + ax), quantize_h2(own.y + ay));
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(h2) + item * D +
+                                         k) =
+          __floats2bfloat162_rn(own.x + ax, own.y + ay);
+    }
   }
 }
 
@@ -176,21 +147,6 @@ constexpr int B_STAGE = BK * B_LD;
 constexpr size_t PIPE_BYTES = (size_t)STAGES * (A_STAGE + B_STAGE) * 2;
 constexpr size_t EPI_BYTES = (size_t)BM * C_LD * 4;
 constexpr size_t GATE_SMEM = PIPE_BYTES > EPI_BYTES ? PIPE_BYTES : EPI_BYTES;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = pred ? 16 : 0;  // 0 bytes read: the 16 bytes are zeroed
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __global__ void __launch_bounds__(THREADS)
 gate_lstm_kernel(const int* __restrict__ prev_ids,
@@ -374,13 +330,6 @@ class_readout_kernel(const bf16* __restrict__ h_new,  // [NK, HW, D]
   if (lane == 0) logits[item] = acc;
 }
 
-constexpr int ROW_THREADS = 256;  // 8 warps, one (row, pixel) each
-
-unsigned row_blocks(int NK, int HW) {
-  const long long items = (long long)NK * HW;
-  return (unsigned)((items + ROW_THREADS / 32 - 1) / (ROW_THREADS / 32));
-}
-
 }  // namespace
 
 extern "C" {
@@ -388,10 +337,19 @@ extern "C" {
 int mv_gnn_attention(const int* parent_rows, const void* h, const void* scene,
                      void* h2, int NK, int H, int W, int D, int C,
                      void* stream) {
-  gnn_attention_kernel<<<row_blocks(NK, H * W), ROW_THREADS, 0,
-                         (cudaStream_t)stream>>>(
-      parent_rows, (const bf16*)h, (const bf16*)scene, (bf16*)h2, NK, H, W, D,
-      C);
+  gnn_attention_kernel<false><<<row_blocks(NK, H * W), ROW_THREADS, 0,
+                                (cudaStream_t)stream>>>(
+      parent_rows, (const bf16*)h, (const bf16*)scene, h2, NK, H, W, D, C);
+  return (int)cudaGetLastError();
+}
+
+// K1's attention with the int8 gate input of the "int8" tier as output.
+int mv_gnn_attention_h2q(const int* parent_rows, const void* h,
+                         const void* scene, void* h2q, int NK, int H, int W,
+                         int D, int C, void* stream) {
+  gnn_attention_kernel<true><<<row_blocks(NK, H * W), ROW_THREADS, 0,
+                               (cudaStream_t)stream>>>(
+      parent_rows, (const bf16*)h, (const bf16*)scene, h2q, NK, H, W, D, C);
   return (int)cudaGetLastError();
 }
 

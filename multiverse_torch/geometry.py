@@ -3,7 +3,7 @@ regression targets, and one-hot cell maps.
 
 Port of ``multiverse_tpu/geometry.py``: the numpy helpers are the same
 functions (that module imports jax at load time, so they are kept here),
-and ``one_hot_grid`` builds torch tensors.
+and ``xy_to_cell`` and ``one_hot_grid`` work on torch tensors.
 """
 
 from __future__ import annotations
@@ -35,6 +35,19 @@ def xy_to_cell_np(
     x_idx = np.clip(x_idx, 1, w) - 1
     y_idx = np.clip(y_idx, 1, h) - 1
     return (y_idx * w + x_idx).astype(np.int32)
+
+
+def xy_to_cell(xy: torch.Tensor, video_h: int, video_w: int, h: int,
+               w: int) -> torch.Tensor:
+    """Torch twin of :func:`xy_to_cell_np` for the device, in the
+    tensor's own type (f32 for the serving step, as the JAX package's
+    ``xy_to_cell``). Returns [...] int32."""
+    h_gap, w_gap = video_h / h, video_w / w
+    x_idx = torch.ceil(xy[..., 0] / w_gap).to(torch.int32)
+    y_idx = torch.ceil(xy[..., 1] / h_gap).to(torch.int32)
+    x_idx = torch.clamp(x_idx, 1, w) - 1
+    y_idx = torch.clamp(y_idx, 1, h) - 1
+    return y_idx * w + x_idx
 
 
 def dense_regression_targets_np(

@@ -1,7 +1,7 @@
-"""Multi-future inference: batched diverse-beam decode over Forking Paths
-observation trajectories.
+"""Multi-future inference: batched diverse-beam (or greedy) decode over
+Forking Paths observation trajectories.
 
-PyTorch port of the beam branch of ``multiverse_tpu/inference.py``.
+PyTorch port of ``multiverse_tpu/inference.py``.
 The output files keep the reference pickle contracts, so the evaluators
 of ``multiverse_tpu/eval`` read them unchanged:
 
@@ -21,7 +21,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from multiverse_tpu.config import MultiverseConfig
+from multiverse_torch.config import MultiverseConfig
 from multiverse_torch.data import scene as scene_lib
 from multiverse_torch.geometry import (
     grid_centers,
@@ -44,18 +44,10 @@ from multiverse_torch.ops.layers import get_activation
 # ----------------------------------------------------------- forward
 
 
-def beam_forward(
-    params,
-    batch: Batch,
-    cfg: MultiverseConfig,
-    T_pred: Optional[int] = None,
-) -> Tuple[BeamOutputs, torch.Tensor]:
-    """Encoders + diverse beam decode + greedy regression decode for the
-    single active scale. Returns (BeamOutputs, reg_out [N, T, h, w, 2])."""
-    cfg.validate()
-    T = T_pred or cfg.pred_len
-    compute_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
-                     else None)
+def _encode(params, batch: Batch, cfg: MultiverseConfig, compute_dtype):
+    """Scene CNN + class-encoder scan of the single active scale.
+    Returns (obs one-hot maps [N, T_obs, h, w, 1], encoder last state,
+    scene mean [N, h, w, C] or None)."""
     act = get_activation(cfg.activation)
     N, _, T_obs = batch.obs_grid_class.shape
     i = cfg.active_scales[0]
@@ -81,7 +73,27 @@ def beam_forward(
     scene_mean = None
     if cfg.use_scene_enc and cfg.use_gnn:
         scene_mean = torch.mean(scene_convs[i], dim=1)
+    return obs_onehot, enc_last, scene_mean
 
+
+def _compute_dtype(cfg: MultiverseConfig) -> Optional[torch.dtype]:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+
+
+def beam_forward(
+    params,
+    batch: Batch,
+    cfg: MultiverseConfig,
+    T_pred: Optional[int] = None,
+) -> Tuple[BeamOutputs, torch.Tensor]:
+    """Encoders + diverse beam decode + greedy regression decode for the
+    single active scale. Returns (BeamOutputs, reg_out [N, T, h, w, 2])."""
+    cfg.validate()
+    T = T_pred or cfg.pred_len
+    compute_dtype = _compute_dtype(cfg)
+    obs_onehot, enc_last, scene_mean = _encode(params, batch, cfg,
+                                               compute_dtype)
+    sp = params["scales"][str(cfg.active_scales[0])]
     beam = diverse_beam_search(
         sp, cfg,
         first_input=obs_onehot[:, -1],
@@ -92,18 +104,58 @@ def beam_forward(
         save_states=cfg.use_single_decoder,
         compute_dtype=compute_dtype,
     )
-    return beam, _reg_decode(params, batch, cfg, beam, T, compute_dtype)
+    return beam, _reg_decode(params, batch, cfg, beam.states, T,
+                             compute_dtype)
 
 
-def _reg_decode(params, batch, cfg, beam, T, compute_dtype):
+def greedy_forward(
+    params,
+    batch: Batch,
+    cfg: MultiverseConfig,
+    T_pred: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encoders + greedy class decode + greedy regression decode (the
+    ``--greedy`` path). The class decode runs the fused decode step on
+    the bf16 GNN path (K1, or K2/K3 under ``cfg.decode_quant``).
+    Returns (class logits [N, T, h, w, 1], reg [N, T, h, w, 2])."""
+    cfg = cfg.replace(use_beam_search=False).validate()
+    T = T_pred or cfg.pred_len
+    compute_dtype = _compute_dtype(cfg)
+    obs_onehot, enc_last, scene_mean = _encode(params, batch, cfg,
+                                               compute_dtype)
+    sp = params["scales"][str(cfg.active_scales[0])]
+    logits, states = greedy_decode(
+        sp, cfg,
+        first_input=obs_onehot[:, -1],
+        init_state=enc_last,
+        T_pred=T,
+        emb_name="dec_class_emb",
+        cell_name="dec_class",
+        h2g_name="h2g_class",
+        use_gnn=cfg.use_gnn,
+        scene_mean=scene_mean,
+        feedback="onehot",
+        compute_dtype=compute_dtype,
+        allow_fused=True,
+    )
+    # the single decoder's regression reads the best (here: only)
+    # decode's states, [N, T, h, w, D]
+    states = states[:, None] if cfg.use_single_decoder else None
+    return logits, _reg_decode(params, batch, cfg, states, T,
+                               compute_dtype)
+
+
+def _reg_decode(params, batch, cfg, states, T, compute_dtype):
+    """The regression head: with a single decoder, read out of the best
+    beam's decoder states (``states`` [N, K, T, h, w, D]); otherwise the
+    regression encoder and its greedy raw-feedback decoder."""
     N = batch.obs_grid_class.shape[0]
     i = cfg.active_scales[0]
     h, w = cfg.scene_grids[i]
     sp = params["scales"][str(i)]
     if cfg.use_single_decoder:
-        # regression read out of the best beam's decoder states
-        D = beam.states.shape[-1]
-        best_states = beam.states[:, 0].reshape(N * T, h, w, D)
+        D = states.shape[-1]
+        best_states = states[:, 0].reshape(N * T, h, w, D)
         reg = conv2d(sp["h2g_single"], best_states,
                      compute_dtype=compute_dtype)
         return reg.reshape(N, T, h, w, 2)
@@ -269,7 +321,7 @@ def make_batch(
     """A numpy Batch for the given trajectory indices. Only the scene
     rows the batch references are packed, remapped to first-seen order
     and zero-padded to a fixed n*T_obs rows."""
-    from multiverse_tpu import native
+    from multiverse_torch import native
 
     scale0 = cfg.active_scales[0]
     obs_scene_old = inputs.obs_scene[idxs]
@@ -325,6 +377,25 @@ def reconstruct_beam_trajs(
     return (pts + off.transpose(1, 2)).float()
 
 
+def reconstruct_greedy_trajs(
+    class_logits: torch.Tensor,  # [N, T, h, w, 1]
+    reg_out: torch.Tensor,       # [N, T, h, w, 2]
+    centers: torch.Tensor,       # [h*w, 2]
+    center_only: bool = False,
+) -> torch.Tensor:
+    """Argmax cells + offsets -> [N, T, 2] absolute points, on the
+    device."""
+    N, T = class_logits.shape[:2]
+    HW = class_logits.shape[2] * class_logits.shape[3]
+    sel = torch.argmax(class_logits.reshape(N, T, HW), dim=-1)
+    pts = centers[sel]                                   # [N, T, 2]
+    if center_only:
+        return pts.float()
+    reg = reg_out.reshape(N, T, HW, 2)
+    off = torch.gather(reg, 2, sel[..., None, None].expand(N, T, 1, 2))
+    return (pts + off[:, :, 0]).float()
+
+
 def _resolve_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -339,13 +410,18 @@ def run_multifuture_inference(
     inputs: MultifutureInputs,
     cfg: MultiverseConfig,
     batch_size: int = 16,
+    greedy: bool = False,
     center_only: bool = False,
     need_prob: bool = True,
     prob_fetch_dtype: str = "float32",
     device="cuda",
 ) -> Tuple[Dict[str, list], Dict[str, tuple]]:
-    """Beam-decode every trajectory on ``device``; return (output_data,
+    """Decode every trajectory on ``device``; return (output_data,
     beam_prob) in the reference pickle formats.
+
+    ``greedy=True`` decodes one future per trajectory
+    (:func:`greedy_forward`) and writes it ``beam_size`` times, as the
+    JAX package does; ``beam_prob`` is then empty (no beams).
 
     ``params`` is a :class:`~multiverse_torch.models.Multiverse` (moved
     to ``device``). Trajectories are reconstructed on the device;
@@ -361,7 +437,7 @@ def run_multifuture_inference(
             f"prob_fetch_dtype must be float32|float16, got "
             f"{prob_fetch_dtype!r}")
     device = _resolve_device(device)
-    cfg = cfg.replace(use_beam_search=True).validate()
+    cfg = cfg.replace(use_beam_search=not greedy).validate()
     params = params.to(device)
     i = cfg.active_scales[0]
     h, w = cfg.scene_grids[i]
@@ -376,11 +452,17 @@ def run_multifuture_inference(
     def dispatch(batch: Batch):
         """Enqueue one batch; return host copies and a ready event."""
         with torch.inference_mode():
-            beam, reg_out = beam_forward(
-                params, batch_to_device(batch, device), cfg, T_pred=T)
-            outs = [reconstruct_beam_trajs(beam.ids, reg_out, centers,
-                                           center_only), beam.logprobs]
-            if need_prob:
+            if greedy:
+                logits, reg_out = greedy_forward(
+                    params, batch_to_device(batch, device), cfg, T_pred=T)
+                outs = [reconstruct_greedy_trajs(logits, reg_out, centers,
+                                                 center_only)]
+            else:
+                beam, reg_out = beam_forward(
+                    params, batch_to_device(batch, device), cfg, T_pred=T)
+                outs = [reconstruct_beam_trajs(beam.ids, reg_out, centers,
+                                               center_only), beam.logprobs]
+            if need_prob and not greedy:
                 lg = beam.logits
                 outs.append(lg if fetch_dt is None else lg.to(fetch_dt))
             if device.type != "cuda":
@@ -402,13 +484,19 @@ def run_multifuture_inference(
             # copy out of page-locked memory: the pickles keep views of
             # these arrays for the whole run
             host = [t.numpy().copy() for t in host]
-        trajs, logprobs = host[0], host[1]
-        logits = np.asarray(host[2], np.float32) if need_prob else None
+        trajs = host[0]
+        logits = None
+        if need_prob and not greedy:
+            logprobs, logits = host[1], np.asarray(host[2], np.float32)
         for a, n in enumerate(idxs):
             traj_id = inputs.traj_ids[n]
             pred_len = int(inputs.pred_lengths[n])
-            output_data[traj_id] = [list(trajs[a, j, :pred_len])
-                                    for j in range(K)]
+            if greedy:
+                output_data[traj_id] = [list(trajs[a, :pred_len])
+                                        for _ in range(K)]
+            else:
+                output_data[traj_id] = [list(trajs[a, j, :pred_len])
+                                        for j in range(K)]
             if logits is not None:
                 beam_prob[traj_id] = (logits[a:a + 1, :, :pred_len],
                                       logprobs[a:a + 1])
@@ -439,7 +527,8 @@ def save_outputs(
     if save_prob_file is not None and not beam_prob:
         raise ValueError(
             "save_prob_file requested but beam_prob is empty — the "
-            ".prob.p contract needs need_prob=True")
+            ".prob.p contract needs beam search (not greedy) and "
+            "need_prob=True")
     os.makedirs(os.path.dirname(os.path.abspath(output_file)), exist_ok=True)
     with open(output_file, "wb") as f:
         pickle.dump(output_data, f)

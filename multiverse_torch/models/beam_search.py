@@ -13,11 +13,11 @@ lower index wins, as with ``jax.lax.top_k``, which the exactness of the
 two-stage selector relies on.
 
 On the bf16 path with the GNN on, each step is one call of the fused
-decode step (:func:`multiverse_torch.ops.decode_step_gathered`): the
-state is carried in the order the step wrote it, and the next step
-reads each row's parent through ``parent_rows``. Every other
-configuration runs the composed step (GNN, cell, readout) with an
-explicit parent gather.
+decode step of ``cfg.decode_quant``'s tier
+(:func:`multiverse_torch.ops.make_decode_step`): the state is carried in the
+order the step wrote it, and the next step reads each row's parent
+through ``parent_rows``. Every other configuration runs the composed
+step (GNN, cell, readout) with an explicit parent gather.
 """
 
 from __future__ import annotations
@@ -27,14 +27,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from multiverse_tpu.config import MultiverseConfig
+from multiverse_torch.config import MultiverseConfig
 from multiverse_torch.geometry import one_hot_grid
 from multiverse_torch.ops import (
     ConvLSTMState,
     conv2d,
     convlstm_step,
-    decode_step_gathered,
     gnn_step_neighbors,
+    make_decode_step,
 )
 from multiverse_torch.ops.layers import get_activation
 
@@ -169,10 +169,10 @@ def diverse_beam_search(
                  else select_successors_dense)
     if fused:
         bf = torch.bfloat16
-        cell_w = cell_p["kernel"].to(bf).reshape(-1, 4 * D).contiguous()
         cell_b = cell_p["bias"].float().contiguous()
         h2g_w = h2g_p["w"].to(bf).reshape(9, D).t().contiguous()   # [D, 9]
-        emb_rows = emb_table.to(bf).reshape(HW, HW, -1).contiguous()
+        # the tier's operands are prepared once per decode
+        step = make_decode_step(cfg.decode_quant, cell_p, emb_table)
         scene_rows = None if scene_nk is None else \
             scene_nk.to(bf).reshape(N * K * HW, -1).contiguous()
         h_rows = _fold(state.h).reshape(N * K * HW, D).contiguous()
@@ -184,10 +184,11 @@ def diverse_beam_search(
         if fused:
             # the beam reorder rides the step's reads: row i reads its
             # parent's state and its id's embedding-table row
-            h_rows, c_rows, logits_t = decode_step_gathered(
-                cell_w, cell_b, h2g_w, prev_ids.reshape(-1).contiguous(),
-                (row0 + prev_parents).reshape(-1).contiguous(), emb_rows,
-                h_rows, c_rows, scene_rows, h, w)
+            ids_flat = prev_ids.reshape(-1).contiguous()
+            parents_flat = (row0 + prev_parents).reshape(-1).contiguous()
+            h_rows, c_rows, logits_t = step(
+                cell_b, h2g_w, ids_flat, parents_flat, h_rows, c_rows,
+                scene_rows, h, w)
         else:
             emb = emb_table[prev_ids.reshape(-1).long()]
             hh = _fold(state.h)

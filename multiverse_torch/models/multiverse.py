@@ -2,7 +2,8 @@
 over coarse spatial grids.
 
 PyTorch port of ``multiverse_tpu/models/multiverse.py`` for inference:
-``init_params``, ``scene_encode`` and the composed ``greedy_decode``.
+``init_params``, ``scene_encode`` and ``greedy_decode`` (composed, or
+for the class decode at inference through the fused decode step).
 The parameters live in a :class:`Multiverse` module whose names follow
 the JAX parameter tree (``scene_conv1.w``, ``scales.0.dec_class.kernel``,
 ...); the functions take any nested mapping of tensors with that layout,
@@ -16,7 +17,7 @@ from typing import List, Mapping, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from multiverse_tpu.config import MultiverseConfig
+from multiverse_torch.config import MultiverseConfig
 from multiverse_torch.geometry import one_hot_grid
 from multiverse_torch.ops import (
     ConvLSTMState,
@@ -25,6 +26,7 @@ from multiverse_torch.ops import (
     convlstm_step,
     gnn_step_neighbors,
     init_conv,
+    make_decode_step,
 )
 from multiverse_torch.ops.layers import get_activation
 
@@ -156,18 +158,31 @@ def greedy_decode(
     scene_mean: Optional[torch.Tensor] = None,   # [N, h, w, Cc]
     feedback: str = "onehot",        # onehot | raw
     compute_dtype: Optional[torch.dtype] = None,
+    allow_fused: bool = False,       # the fused decode step (inference)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Autoregressive ConvLSTM decode, composed form: per step an
-    optional GNN residual on h, the 3x3 embedding of the input, a
-    ConvLSTM step and the hidden-to-grid readout; the next input is the
-    argmax one-hot ("onehot") or the readout itself ("raw"). Returns
-    (readouts [N, T, h, w, P], hidden states [N, T, h, w, D])."""
+    """Autoregressive ConvLSTM decode: per step an optional GNN residual
+    on h, the 3x3 embedding of the input, a ConvLSTM step and the
+    hidden-to-grid readout; the next input is the argmax one-hot
+    ("onehot") or the readout itself ("raw"). Returns (readouts
+    [N, T, h, w, P], hidden states [N, T, h, w, D]).
+
+    With ``allow_fused`` the bf16 argmax class decode with the GNN on
+    runs the fused decode step instead (K1, or K2/K3 under
+    ``cfg.decode_quant``), as ``multiverse_tpu`` does: it carries the
+    argmax cell id, looks its embedding up in a table of every cell's
+    embedding, and passes identity parents."""
     if feedback not in ("onehot", "raw"):
         raise ValueError(f"feedback must be onehot|raw, got {feedback!r}")
     act = get_activation(cfg.activation)
     emb_p = scale_params[emb_name]
     cell_p = scale_params[cell_name]
     h2g_p = scale_params[h2g_name]
+    if (allow_fused and cfg.allow_pallas and feedback == "onehot"
+            and use_gnn and compute_dtype == torch.bfloat16
+            and first_input.shape[-1] == 1 and h2g_p["w"].shape[-1] == 1):
+        return _greedy_decode_fused(emb_p, cell_p, h2g_p, cfg, act,
+                                    first_input, init_state, T_pred,
+                                    scene_mean)
     state, x = init_state, first_input
     outs, readouts = [], []
     for _ in range(T_pred):
@@ -187,4 +202,34 @@ def greedy_decode(
             x = logits
         outs.append(out)
         readouts.append(logits)
+    return torch.stack(readouts, dim=1), torch.stack(outs, dim=1)
+
+
+def _greedy_decode_fused(emb_p, cell_p, h2g_p, cfg, act, first_input,
+                         init_state, T_pred, scene_mean):
+    """The fused form of the argmax class decode
+    (``multiverse_tpu/models/multiverse.py:240-278``)."""
+    N, H, W, _ = first_input.shape
+    HW = H * W
+    D = init_state.h.shape[-1]
+    dev = first_input.device
+    bf = torch.bfloat16
+    emb_table = conv2d(emb_p, one_hot_grid(torch.arange(HW, device=dev), H, W),
+                       activation=act, compute_dtype=bf)
+    ids = torch.argmax(first_input.reshape(N, HW), dim=1).int()
+    identity = torch.arange(N, dtype=torch.int32, device=dev)
+    h_rows = init_state.h.to(bf).reshape(N * HW, D).contiguous()
+    c_rows = init_state.c.to(bf).reshape(N * HW, D).contiguous()
+    scene_rows = None if scene_mean is None else \
+        scene_mean.to(bf).reshape(N * HW, -1).contiguous()
+    cell_b = cell_p["bias"].float().contiguous()
+    h2g_w = h2g_p["w"].to(bf).reshape(9, D).t().contiguous()    # [D, 9]
+    step = make_decode_step(cfg.decode_quant, cell_p, emb_table)
+    outs, readouts = [], []
+    for _ in range(T_pred):
+        h_rows, c_rows, logits = step(cell_b, h2g_w, ids, identity, h_rows,
+                                      c_rows, scene_rows, H, W)
+        ids = torch.argmax(logits.reshape(N, HW), dim=1).int()
+        outs.append(h_rows.reshape(N, H, W, D))
+        readouts.append(logits.reshape(N, H, W, 1))
     return torch.stack(readouts, dim=1), torch.stack(outs, dim=1)

@@ -1,4 +1,5 @@
-"""Layer library: conv, ConvLSTM, GNN and the fused decode-step kernel."""
+"""Layer library: conv, ConvLSTM, GNN, the fused decode-step kernels and
+the int8 tiers' operands."""
 
 from multiverse_torch.ops.convlstm import (  # noqa: F401
     ConvLSTMState,
@@ -8,6 +9,8 @@ from multiverse_torch.ops.convlstm import (  # noqa: F401
 )
 from multiverse_torch.ops.fused_decode import (  # noqa: F401
     decode_step_gathered,
+    decode_step_gathered_q8,
+    decode_step_gathered_q8_ref,
     decode_step_gathered_ref,
 )
 from multiverse_torch.ops.gnn import (  # noqa: F401
@@ -19,4 +22,10 @@ from multiverse_torch.ops.layers import (  # noqa: F401
     conv2d,
     get_activation,
     init_conv,
+)
+from multiverse_torch.ops.quant import (  # noqa: F401
+    DecodeQuant,
+    make_decode_step,
+    quantize_decode_weights,
+    select_quant,
 )

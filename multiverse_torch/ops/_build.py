@@ -1,7 +1,8 @@
 """Build the CUDA sources under ``multiverse_torch/csrc`` and load them.
 
 The sources are compiled at first use with ``nvcc`` for ``sm_90a``
-(Hopper) into one shared library with a plain C interface, which is
+(Hopper), one ``nvcc -c`` per ``.cu`` file, all started together, and
+linked into one shared library with a plain C interface, which is
 loaded with ctypes. The library goes to ``multiverse_torch/_build/``
 under a name keyed by a hash of the sources and the flags, so an edit
 rebuilds and an unchanged tree loads the existing file. Only sources in
@@ -23,11 +24,15 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas=-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# ptxas's report (registers, shared memory, spills per kernel) of the
+# last build in this process, empty when the library was already built
+build_log = ""
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +42,10 @@ _SIGNATURES = {
     "mv_gate_lstm": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, ctypes.c_float, _P],
     "mv_class_readout": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
+    "mv_gnn_attention_h2q": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mv_gnn_attention_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mv_gate_lstm_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, ctypes.c_float, _P],
 }
 
 
@@ -64,6 +73,7 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the library if it is not built yet; return its path."""
+    global build_log
     out = library_path()
     if out.exists():
         return out
@@ -74,16 +84,40 @@ def build() -> Path:
             "the CUDA kernels of multiverse_torch are built from "
             "multiverse_torch/csrc at first use and need the CUDA toolkit")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            "nvcc failed (%d): %s\n%s" % (proc.returncode, " ".join(cmd),
-                                          proc.stderr))
-    # atomic: two processes building at once both succeed
-    os.replace(tmp, out)
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+               str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append("nvcc failed (%d): %s\n%s" % (
+                proc.returncode, " ".join(cmd), logs[-1]))
+    objs = [str(obj) for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = out.with_name(f"{tag}.tmp.so")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc link failed (%d): %s\n%s" % (
+                proc.returncode, " ".join(cmd), proc.stderr))
+        # atomic: two processes building at once both succeed
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    build_log = "".join(logs)
     return out
 
 

@@ -1,0 +1,112 @@
+"""Operands of the int8 decode tiers and the tier dispatch.
+
+Port of ``quantize_decode_weights`` and ``select_quant`` of
+``multiverse_tpu/ops/pallas_decode.py``. Every input of the gate
+product is bounded, so the quantisation is static:
+
+* the previous-cell embedding rows come from a precomputed table,
+  quantised once per decode with per-channel scales ``s_emb[e]``;
+* the recurrent half is h + agg with |h + agg| < 2 (h is tanh-bounded
+  and agg a softmax-weighted mean of h), at a fixed scale of 127/2;
+
+and the per-input scales fold into the weights:
+gates[c] = sum_k x_q[k] * (s_k * w[k, c]) = t_c * sum_k x_q[k] w_q[k, c],
+with ``w_q`` int8 per output channel and ``t_c`` its f32 scale.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Mapping, NamedTuple, Tuple
+
+import torch
+
+from multiverse_torch.ops.fused_decode import (
+    decode_step_gathered,
+    decode_step_gathered_q8,
+)
+
+
+class DecodeQuant(NamedTuple):
+    """The int8 operands of one decode (``emb_q``, ``w_q``, ``t_c`` as
+    the JAX package's triple, in its layouts)."""
+
+    emb_q: torch.Tensor    # [HW, H, W, E] int8
+    w_q: torch.Tensor      # [9*Cin, 4D] int8
+    t_c: torch.Tensor      # [1, 4D] f32 per-output-channel scales
+    # w_q transposed to [4D, 9*Cin], contiguous: each gate column's
+    # contraction is contiguous, the operand layout of the int8 MMA in
+    # csrc/fused_decode_q8.cu
+    w_qt: torch.Tensor
+
+
+def quantize_decode_weights(cell_params: Mapping[str, torch.Tensor],
+                            emb_table: torch.Tensor) -> DecodeQuant:
+    """Precompute the int8 decode operands (once per decode: it holds a
+    reduction over the whole table and the weights).
+
+    ``cell_params["kernel"]`` is the [3, 3, Cin, 4D] gate kernel,
+    ``emb_table`` the [HW, H, W, E] embedding of every cell."""
+    E = emb_table.shape[-1]
+    kern = cell_params["kernel"].float()
+    Cin, D4 = kern.shape[2], kern.shape[3]
+    kern = kern.reshape(9 * Cin, D4)
+
+    emb = emb_table.float()
+    s_emb = torch.clamp_min(torch.amax(emb.abs(), dim=(0, 1, 2)),
+                            1e-6) / 127.0                      # [E]
+    s_h = torch.full((Cin - E,), 2.0 / 127.0, dtype=torch.float32,
+                     device=kern.device)
+    s_k9 = torch.cat([s_emb, s_h]).repeat(9)                   # [9*Cin]
+
+    w_eff = kern * s_k9[:, None]
+    t_c = torch.clamp_min(torch.amax(w_eff.abs(), dim=0), 1e-12) / 127.0
+    w_q = torch.round(w_eff / t_c[None, :]).to(torch.int8)
+    emb_q = torch.clamp(torch.round(emb / s_emb), -127, 127).to(torch.int8)
+    return DecodeQuant(emb_q=emb_q, w_q=w_q, t_c=t_c.reshape(1, D4),
+                       w_qt=w_q.t().contiguous())
+
+
+def select_quant(decode_quant: str, cell_params: Mapping[str, torch.Tensor],
+                 emb_table: torch.Tensor) -> Tuple[DecodeQuant, Callable]:
+    """(quantised operands, step function) for a ``cfg.decode_quant``
+    value (bound into a step by :func:`make_decode_step`). "int8" steps
+    through K2, "int8a" through K3
+    (:func:`~multiverse_torch.ops.fused_decode.decode_step_gathered_q8`
+    with ``attn_q8``)."""
+    if decode_quant == "int8_dyn":
+        raise NotImplementedError(
+            "decode_quant='int8_dyn' needs the dynamic-scale int8 kernel "
+            "(K7, multiverse_tpu/ops/pallas_decode.py:760 "
+            "decode_step_pallas_gathered_q8v2), which is not ported yet; "
+            "use 'int8' or 'int8a'")
+    if decode_quant not in ("int8", "int8a"):
+        raise ValueError(f"no int8 decode mode named {decode_quant!r}")
+    quant = quantize_decode_weights(cell_params, emb_table)
+    return quant, functools.partial(decode_step_gathered_q8,
+                                    attn_q8=decode_quant == "int8a")
+
+
+def make_decode_step(decode_quant: str,
+                     cell_params: Mapping[str, torch.Tensor],
+                     emb_table: torch.Tensor) -> Callable:
+    """The fused decode step of a tier, its operands prepared once per
+    decode: ``step(cell_b, h2g_w, prev_ids, parent_rows, h, c, scene, H,
+    W) -> (h', c', logits)``. "none" binds K1's bf16 gate weights and
+    embedding rows to :func:`decode_step_gathered`; "int8" and "int8a"
+    bind :func:`select_quant`'s operands to K2 or K3. The one dispatch
+    point of the beam and greedy decoders."""
+    if decode_quant == "none":
+        bf = torch.bfloat16
+        D4 = cell_params["kernel"].shape[-1]
+        HW = emb_table.shape[0]
+        cell_w = cell_params["kernel"].to(bf).reshape(-1, D4).contiguous()
+        emb_rows = emb_table.to(bf).reshape(HW, HW, -1).contiguous()
+
+        def step(cell_b, h2g_w, prev_ids, parent_rows, h, c, scene, H, W):
+            return decode_step_gathered(cell_w, cell_b, h2g_w, prev_ids,
+                                        parent_rows, emb_rows, h, c, scene,
+                                        H, W)
+        return step
+    quant, q8_step = select_quant(decode_quant, cell_params, emb_table)
+    return functools.partial(q8_step, quant)

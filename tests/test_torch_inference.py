@@ -1,9 +1,9 @@
 """The port's inference slice against the JAX package on the CPU:
 ``beam_forward`` in f32 (ids equal, offsets within 1e-4) and in bf16
 through the fused-step wiring (step-0 logits within 2e-2), the offline
-offline run's pickles scored by the JAX package's evaluators, the CLI, and
-the guarantees that the port never imports jax and never falls back
-from CUDA to the CPU."""
+run's pickles scored by the JAX package's evaluators, the CLI, and the
+guarantees that the port imports nothing of jax or of the JAX package
+and never falls back from CUDA to the CPU."""
 
 import os
 import pickle
@@ -92,8 +92,8 @@ def test_beam_forward_bf16_fused_wiring_tracks_jax(monkeypatch):
     """bf16 with the GNN on: JAX runs its fused Pallas step in interpret
     mode, the port its fused step's plain version (CPU tensors)."""
     from multiverse_tpu.ops import pallas_decode
-    from multiverse_torch.models import beam_search
     from multiverse_torch.ops import decode_step_gathered
+    from multiverse_torch.ops import quant
 
     monkeypatch.setattr(pallas_decode, "FORCE_INTERPRET_FUSED", True)
     calls = []
@@ -102,7 +102,7 @@ def test_beam_forward_bf16_fused_wiring_tracks_jax(monkeypatch):
         calls.append(1)
         return decode_step_gathered(*args, **kw)
 
-    monkeypatch.setattr(beam_search, "decode_step_gathered", counting)
+    monkeypatch.setattr(quant, "decode_step_gathered", counting)
     cfg = _cfg(compute_dtype="bfloat16")
     jparams, model = _params(cfg)
     jb, tb = _batches(cfg)
@@ -233,9 +233,12 @@ def test_cli_writes_both_pickles_and_rejects_unported_modes(tmp_path,
     for tid, beams in trajs.items():
         assert np.asarray(beams).shape[:1] == (4,)
         assert probs[tid][0].shape[:2] == (1, 4)
-    for extra in (["--decode_quant", "int8a"], ["--greedy"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            tcli.main(args + extra)
+    # the dynamic-scale tier's kernel (K7) is not ported; greedy decode
+    # has no beams for the .prob.p output
+    with pytest.raises(SystemExit, match="not ported"):
+        tcli.main(args + ["--decode_quant", "int8_dyn"])
+    with pytest.raises(SystemExit, match="requires beam search"):
+        tcli.main(args + ["--greedy"])
     with pytest.raises(ValueError, match="do not match"):
         tcli.main(args[:-2] + ["--scene_conv_dim", "4"])
 
@@ -254,12 +257,20 @@ def test_cuda_request_raises_without_cuda():
 
 
 def test_port_never_imports_jax():
+    """With jax and the JAX package made unimportable, every module of
+    the port and chip_smoke.py import, and the beam, greedy and int8a
+    paths run on the CPU."""
     code = (
-        "import sys, numpy as np\n"
+        "import importlib, pkgutil, sys\n"
+        "for name in ('jax', 'jaxlib', 'multiverse_tpu'):\n"
+        "    sys.modules[name] = None      # any import of them raises\n"
         "import multiverse_torch\n"
-        "from multiverse_tpu.config import MultiverseConfig\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    multiverse_torch.__path__, 'multiverse_torch.')]\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
         "from multiverse_torch import inference\n"
-        "from multiverse_torch.cli import multifuture_inference\n"
+        "from multiverse_torch.config import MultiverseConfig\n"
         "from multiverse_torch.models import Multiverse\n"
         "cfg = MultiverseConfig(scene_h=12, scene_w=16, scene_class=5,\n"
         "    enc_hidden_size=16, dec_hidden_size=16, scene_conv_dim=8,\n"
@@ -267,13 +278,16 @@ def test_port_never_imports_jax():
         "    compute_dtype='bfloat16', use_beam_search=True).validate()\n"
         "inp = inference.synthesize_multifuture_inputs(cfg, 3, seed=0,\n"
         "                                              max_pred_len=13)\n"
-        "out, prob = inference.run_multifuture_inference(\n"
-        "    Multiverse.init(cfg), inp, cfg, batch_size=2, device='cpu')\n"
-        "assert len(out) == 3 and len(prob) == 3\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
-        "             or m.startswith(('jax.', 'jaxlib')))\n"
-        "print('JAX_MODULES', bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "for quant, greedy in (('none', False), ('int8a', False),\n"
+        "                      ('int8', True)):\n"
+        "    out, prob = inference.run_multifuture_inference(\n"
+        "        Multiverse.init(cfg), inp, cfg.replace(decode_quant=quant),\n"
+        "        batch_size=2, greedy=greedy, device='cpu')\n"
+        "    assert len(out) == 3 and len(prob) == (0 if greedy else 3)\n"
+        "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
+        "             and m.startswith(('jax', 'multiverse_tpu')))\n"
+        "print('MODULES', len(names), 'JAX_MODULES', bad)\n"
+        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
