@@ -40,6 +40,32 @@
    latency and the batches' padding share (smoke readings: too few
    requests for a tail percentile or a serving knee).
 
+5. Training-kernel phase: K4 (``gnn_dense_fwd``) and K5
+   (``gnn_dense_bwd``) at the training shape (N = 20 samples, 18x32,
+   D = 256, C = 64, a unit-normal f32 cotangent) on two operand sets:
+   hidden and scene features from the model's own encoders on a
+   synthetic batch, and tanh(randn) states with uniform scene features.
+   Each output is held against its plain version within 2e-2 x max
+   |plain| (max abs error; for K4 also within 2e-2), printed beside max
+   and mean |plain|; the same gate must reject planted faults (K4 out =
+   0, K5 dnode = 0, dnode without the dedges^T term, dstates = 0) on
+   both sets. Kernel, plain and SDPA (the library yardstick, with its
+   backend) medians and each launch's device time.
+6. Training phase: ``mvt-torch-train``'s own ``main`` with the published
+   training flags (TRAINING.md, adadelta lr 0.3, soft grid labels, GNN
+   and scene encoder, clip 10) plus ``--compute_dtype bfloat16``, batch
+   20, 2 epochs of 400 synthetic examples (``synthesize_prepro``, the
+   published widths; 100 for val), ``--save_period 20``, on cuda. Checks
+   every loss is finite, K4 and K5 ran steps x 12 times, the evals' K1
+   ran batches x 12 times, the last 10 steps' mean loss is below the
+   first step's, both checkpoint directories hold npz files and the best
+   one decodes a batch through ``run_multifuture_inference``. Then one
+   train step through the kernels and one through the plain versions on
+   the same weights and batch (loss within 1e-2 relative, every
+   gradient within 2e-2 relative L2); prints buffered steps/s and
+   examples/s, the device idle share over 5 steps and the top device
+   operations of one step.
+
 Prints one JSON line describing the kernels, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero;
 without CUDA it exits nonzero before printing anything.
@@ -64,7 +90,14 @@ import torch
 
 from multiverse_torch import inference
 from multiverse_torch.cli import serve
+from multiverse_torch.cli import train as train_cli
 from multiverse_torch.config import MultiverseConfig
+from multiverse_torch.bridge import load_params_npz
+from multiverse_torch.data.dataset import (
+    batch_to_device,
+    read_data,
+    synthesize_prepro,
+)
 from multiverse_torch.models import Multiverse
 from multiverse_torch.ops import _build, conv2d, get_activation
 from multiverse_torch.ops.fused_decode import (
@@ -75,12 +108,23 @@ from multiverse_torch.ops.fused_decode import (
     gate_input_q8,
     gate_input_q8_ref,
 )
+from multiverse_torch.ops import fused_gnn
 from multiverse_torch.ops import quant as quant_ops
+from multiverse_torch.ops.fused_decode import _neighbor_bias
+from multiverse_torch.ops.fused_gnn import (
+    gnn_dense_bwd,
+    gnn_dense_bwd_ref,
+    gnn_dense_fwd,
+    gnn_dense_fwd_ref,
+    normalised_node,
+)
 from multiverse_torch.ops.quant import quantize_decode_weights
 from multiverse_torch.serving.aserver import AsyncPredictionServer
 from multiverse_torch.serving.client import PredictionClient
 from multiverse_torch.serving.engine import RawInputs, rasterize_batch
 from multiverse_torch.serving.server import PredictionServer
+from multiverse_torch.train import trainer
+from multiverse_torch.train.checkpoints import list_steps
 
 TOL = 2e-2
 # least share of the q8 kernels' int8 gate inputs (h2_q) equal to the
@@ -101,7 +145,24 @@ KERNELS = {
     "K3": {"name": "decode_step_gathered_q8 (int8a)", "route": "cuda",
            "source": "multiverse_torch/csrc/fused_decode_q8.cu",
            "replaces": "multiverse_tpu/ops/pallas_decode.py:974"},
+    "K4": {"name": "gnn_dense_fwd (GnnDense forward)", "route": "cuda",
+           "source": "multiverse_torch/csrc/gnn_dense.cu",
+           "replaces": "multiverse_tpu/ops/pallas_gnn.py:106"},
+    "K5": {"name": "gnn_dense_bwd (GnnDense backward)", "route": "cuda",
+           "source": "multiverse_torch/csrc/gnn_dense.cu",
+           "replaces": "multiverse_tpu/ops/pallas_gnn.py:123"},
 }
+# TRAINING.md's published training command (its --grid_strides is
+# --scene_grid_strides in both trainers) plus bf16, at batch 20, 2
+# epochs and an eval/save every 20 steps
+TRAIN_FLAGS = ["--batch_size", "20", "--num_epochs", "2", "--init_lr", "0.3",
+               "--optimizer", "adadelta", "--use_gnn", "--use_scene_enc",
+               "--use_soft_grid_class", "--soft_grid", "1",
+               "--scene_grid_strides", "2,4", "--use_grids", "1,0",
+               "--grid_loss_weight", "1.0", "--grid_reg_loss_weight", "0.1",
+               "--wd", "0.0001", "--save_period", "20",
+               "--compute_dtype", "bfloat16", "--device", "cuda"]
+TRAIN_EXAMPLES, VAL_EXAMPLES = 400, 100
 # the README quick-start beam flags at the published widths
 QUICKSTART_FLAGS = ["--use_gnn", "--use_scene_enc", "--use_beam_search",
                     "--beam_size", "20", "--diverse_beam",
@@ -331,6 +392,8 @@ def check_pickles(out, prob, inputs, cfg) -> None:
 def reset_launches() -> None:
     decode_step_gathered.launches = 0
     decode_step_gathered_q8.launches = {"int8": 0, "int8a": 0}
+    gnn_dense_fwd.launches = 0
+    gnn_dense_bwd.launches = 0
 
 
 def offline_run(model, cfg, inputs, dev, tier: str) -> int:
@@ -375,7 +438,7 @@ def id_agreement(model, cfg, inputs, dev) -> None:
     version (information: bf16 near-ties flip ids)."""
     batch_size = 16
     T = int(inputs.pred_lengths.max())
-    batch = inference.batch_to_device(
+    batch = batch_to_device(
         inference.make_batch(inputs, np.arange(batch_size), cfg), dev)
     with torch.inference_mode():
         beam_k, _ = inference.beam_forward(model, batch, cfg, T_pred=T)
@@ -543,6 +606,355 @@ def serve_phase(flags, dev, greedy: bool, n_requests: int,
         engine.close()
 
 
+# --------------------------------------------------------------- training
+
+
+def gnn_operands(model, cfg, dev, N: int = 20) -> dict:
+    """K4/K5 operand sets at the training shape (bf16 node rows from
+    ``normalised_node``, bf16 states, one unit-normal f32 cotangent):
+
+    * "encoder": the model's class-encoder last hidden state and
+      time-averaged scene features of a synthetic batch of N, as the
+      training decode's first GNN step sees them. With zero ConvLSTM
+      biases most of that h is exactly 0 away from the observed cells,
+      so dnode is small there;
+    * "dense": tanh(randn) states and uniform scene features, every row
+      and every product well away from 0."""
+    inputs = inference.synthesize_multifuture_inputs(cfg, N, seed=2)
+    batch = batch_to_device(
+        inference.make_batch(inputs, np.arange(N), cfg), dev)
+    with torch.inference_mode():
+        _, enc_last, scene_mean = inference._encode(model, batch, cfg,
+                                                    torch.bfloat16)
+    bf = torch.bfloat16
+    h, scene = enc_last.h.to(bf), scene_mean.to(bf)
+    N, H, W, D = h.shape
+    g = torch.Generator(device=dev).manual_seed(3)
+    dense_h = torch.tanh(torch.randn(h.shape, generator=g, device=dev))
+    dense_scene = torch.rand(scene.shape, generator=g, device=dev)
+    cot = torch.randn(N * H * W, D, generator=g, device=dev)
+    sets = {}
+    for name, hh, ss in (("encoder", h, scene),
+                         ("dense", dense_h.to(bf), dense_scene.to(bf))):
+        node = normalised_node(hh, ss)
+        sets[name] = (node.reshape(N * H * W, -1).contiguous().clone(),
+                      hh.reshape(N * H * W, D).contiguous().clone(), cot)
+    return sets, H, W
+
+
+def dnode_without_transpose(node, states, g, H: int, W: int):
+    """A planted K5 fault: dnode = dedges . node, the dedges^T term left
+    out (otherwise :func:`gnn_dense_bwd_ref`'s formulas)."""
+    HW = H * W
+    attn = fused_gnn._dense_attn(node, H, W)
+    s = states.reshape(-1, HW, states.shape[-1]).float()
+    g_c = g.reshape(-1, HW, states.shape[-1]).to(states.dtype).float()
+    dattn = g_c @ s.transpose(1, 2)
+    dedges = attn * (dattn - torch.sum(dattn * attn, dim=-1, keepdim=True))
+    n = node.reshape(-1, HW, node.shape[-1]).float()
+    return (dedges.to(node.dtype).float() @ n).to(node.dtype).reshape(
+        node.shape)
+
+
+def gnn_gate(got, want, cap: float = float("inf")) -> dict:
+    """K4/K5's gate: max abs error against the plain version within TOL
+    x max |plain| (K4 also within TOL: ``cap`` 1), relative with no
+    floor, so a small output is held to its own scale."""
+    want = want.float()
+    peak = float(want.abs().max())
+    err = float((got.float() - want).abs().max())
+    return {"err": err, "max_plain": peak,
+            "mean_plain": float(want.abs().mean()),
+            "limit": TOL * min(cap, peak), "ok": err <= TOL * min(cap, peak)}
+
+
+def gnn_bounds(node, states, H: int, W: int) -> dict:
+    """Least times of K4 and K5 on these inputs: bytes (each input read
+    once, each output written once) over the HBM rate against the
+    banded products' operations (only the in-grid neighbour pairs these
+    shapes have) over the bf16 tensor-core peak."""
+    NHW, Dn = node.shape
+    Ds = states.shape[-1]
+    pairs = NHW // (H * W) * (3 * H - 2) * (3 * W - 2)
+    out = {}
+    for name, nbytes, ops in (
+            ("K4", NHW * (Dn * 2 + Ds * 2 + Ds * 4),
+             2.0 * pairs * (Dn + Ds)),
+            ("K5", NHW * (Dn * 2 + Ds * 2 + Ds * 4 + Dn * 2 + Ds * 2),
+             2.0 * pairs * 2 * (Dn + Ds))):
+        bytes_s, ops_s = nbytes / HBM_BYTES_S, ops / PEAK_OPS["bf16"]
+        out[name] = {"bound_ms": max(bytes_s, ops_s) * 1e3,
+                     "bound_by": "operations" if ops_s >= bytes_s
+                     else "bytes"}
+    return out
+
+
+def gnn_kernel_phase(model, cfg, dev) -> dict:
+    """K4 and K5 against their plain versions at the training shape,
+    timed beside the plain versions and SDPA."""
+    sets, H, W = gnn_operands(model, cfg, dev)
+    node, states, cot = sets["encoder"]
+    print("training-kernel phase: N=%d, %dx%d, node %d, states %d"
+          % (node.shape[0] // (H * W), H, W, node.shape[1], states.shape[1]))
+    errs = {"K4": 0.0, "K5": 0.0}
+    outs, failed, planted_passed = {}, [], []
+    for set_name, (nd, st, gg) in sets.items():
+        out = outs[set_name] = gnn_dense_fwd(nd, st, H, W)
+        dnode, dstates = gnn_dense_bwd(nd, st, gg, H, W)
+        torch.cuda.synchronize()
+        ref = gnn_dense_fwd_ref(nd, st, H, W)
+        ref_dnode, ref_dstates = gnn_dense_bwd_ref(nd, st, gg, H, W)
+        for kname, oname, got, want, cap in (
+                ("K4", "out", out, ref, 1.0),
+                ("K5", "dnode", dnode, ref_dnode, float("inf")),
+                ("K5", "dstates", dstates, ref_dstates, float("inf"))):
+            r = gnn_gate(got, want, cap)
+            errs[kname] = max(errs[kname], r["err"])
+            print("training-kernel phase %s %s (%s operands): max abs err "
+                  "%.6g, limit %.6g; max |plain| %.6g, mean |plain| %.6g"
+                  % (kname, oname, set_name, r["err"], r["limit"],
+                     r["max_plain"], r["mean_plain"]))
+            if not r["ok"]:
+                failed.append(f"{kname} {oname} ({set_name})")
+        # the gate must reject these faults on this run's own data
+        for what, got, want, cap in (
+                ("K4 out = 0", torch.zeros_like(ref), ref, 1.0),
+                ("K5 dnode = 0", torch.zeros_like(ref_dnode), ref_dnode,
+                 float("inf")),
+                ("K5 dnode without dedges^T",
+                 dnode_without_transpose(nd, st, gg, H, W), ref_dnode,
+                 float("inf")),
+                ("K5 dstates = 0", torch.zeros_like(ref_dstates),
+                 ref_dstates, float("inf"))):
+            r = gnn_gate(got, want, cap)
+            verdict = "passes" if r["ok"] else "rejected"
+            print("training-kernel phase: planted fault %s (%s operands): "
+                  "err %.6g, limit %.6g, %s"
+                  % (what, set_name, r["err"], r["limit"], verdict))
+            if r["ok"]:
+                planted_passed.append(f"{what} ({set_name})")
+    if failed:
+        raise AssertionError("K4/K5 disagree with their plain versions: "
+                             + ", ".join(failed))
+    if planted_passed:
+        raise AssertionError("the K4/K5 gate does not reject planted "
+                             "faults: " + ", ".join(planted_passed))
+    out = outs["encoder"]
+
+    # the library yardstick: SDPA computes K4's function (scale 1, the
+    # additive mask), and dnode = dq + dk; timed, never used by the port
+    N = node.shape[0] // (H * W)
+    q = node.reshape(N, 1, H * W, -1).detach().clone().requires_grad_()
+    k = node.reshape(N, 1, H * W, -1).detach().clone().requires_grad_()
+    v = states.reshape(N, 1, H * W, -1).detach().clone().requires_grad_()
+    bias = _neighbor_bias(H, W, dev).to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    backend = torch.nn.attention.SDPBackend(torch._fused_sdp_choice(
+        q, k, v, bias, 0.0, False, scale=1.0)).name
+    lib_out = sdpa(q, k, v, attn_mask=bias, scale=1.0)
+    g_out = cot.reshape(lib_out.shape).to(lib_out.dtype)
+
+    def lib_bwd():
+        dq, dk, dv = torch.autograd.grad(lib_out, (q, k, v), g_out,
+                                         retain_graph=True)
+        return dq + dk, dv
+
+    with torch.no_grad():
+        lib_fwd_ms = median_ms(
+            lambda: sdpa(q, k, v, attn_mask=bias, scale=1.0), reps=30)
+    lib_bwd_ms = median_ms(lib_bwd, reps=30)
+    lib_err = float((lib_out.detach().reshape(out.shape).float() - out)
+                    .abs().max())
+
+    bounds = gnn_bounds(node, states, H, W)
+    stats = {}
+    for name, fn, ref, err, lib_ms in (
+            ("K4", lambda: gnn_dense_fwd(node, states, H, W),
+             lambda: gnn_dense_fwd_ref(node, states, H, W), errs["K4"],
+             lib_fwd_ms),
+            ("K5", lambda: gnn_dense_bwd(node, states, cot, H, W),
+             lambda: gnn_dense_bwd_ref(node, states, cot, H, W), errs["K5"],
+             lib_bwd_ms)):
+        ms = median_ms(fn, reps=50)
+        plain_ms = median_ms(ref, reps=20)
+        stats[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, **bounds[name])
+        print("training-kernel phase %s: kernel %.4f ms, plain %.4f ms, "
+              "SDPA %s %.4f ms (backend %s), bound %.4f ms (%s)"
+              % (name, ms, plain_ms, "forward" if name == "K4"
+                 else "backward", lib_ms, backend, bounds[name]["bound_ms"],
+                 bounds[name]["bound_by"]))
+        launch_breakdown(name, fn)
+    print("training-kernel phase: SDPA forward vs K4 max abs diff %.4g "
+          "(bf16 output)" % lib_err)
+    return stats
+
+
+class StepRecorder:
+    """Wraps ``make_train_step`` for ``mvt-torch-train``'s ``main``:
+    keeps every step's total loss on the device (no sync)."""
+
+    def __init__(self):
+        self.losses = []
+
+    def __call__(self, cfg, tx):
+        step = trainer.make_train_step(cfg, tx)
+
+        def recorded(*args, **kw):
+            parts = step(*args, **kw)
+            self.losses.append(parts["total"])
+            return parts
+
+        return recorded
+
+
+def device_busy_ms(prof) -> float:
+    return sum(evt.self_device_time_total for evt in prof.key_averages()
+               if evt.self_device_time_total > 0) / 1e3
+
+
+def grad_agreement(model, batch, cfg) -> None:
+    """One train step's loss and gradients through K4/K5 and through
+    their plain versions, on the same weights and card batch."""
+    grads_k, parts_k = trainer.loss_and_grads(model, batch, cfg)
+    with mock.patch.object(fused_gnn, "gnn_dense_fwd", gnn_dense_fwd_ref), \
+            mock.patch.object(fused_gnn, "gnn_dense_bwd", gnn_dense_bwd_ref):
+        grads_p, parts_p = trainer.loss_and_grads(model, batch, cfg)
+    loss_k, loss_p = float(parts_k["total"]), float(parts_p["total"])
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst, worst_name = 0.0, None
+    for name, gp in grads_p.items():
+        gk = grads_k[name].float()
+        norm = float(gp.float().norm())
+        rel = float((gk - gp.float()).norm()) / norm if norm > 0 \
+            else float(gk.norm())
+        if rel > worst:
+            worst, worst_name = rel, name
+    print("train phase: kernel vs plain train step: loss %.6f vs %.6f "
+          "(rel %.3g); worst gradient rel L2 %.4g (%s)"
+          % (loss_k, loss_p, loss_rel, worst, worst_name))
+    if not loss_rel <= 1e-2 or not worst <= 2e-2:
+        raise AssertionError("the kernel train step disagrees with the "
+                             "plain one")
+
+
+def train_phase(dev) -> dict:
+    """mvt-torch-train end to end on the card; returns the launches of
+    K4, K5 and the evals' K1."""
+    cfg = MultiverseConfig(batch_size=20, compute_dtype="bfloat16",
+                           use_soft_grid_class=True).validate()
+    with tempfile.TemporaryDirectory() as tmp:
+        prepro = synthesize_prepro(os.path.join(tmp, "prepro"), cfg,
+                                   TRAIN_EXAMPLES, VAL_EXAMPLES, seed=0)
+        rec = StepRecorder()
+        reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(train_cli, "make_train_step", rec):
+            train_cli.main([prepro, os.path.join(tmp, "out"), "multiverse",
+                            *TRAIN_FLAGS])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = len(rec.losses)
+        losses = torch.stack(rec.losses).cpu().numpy()
+        launches = {"K4": gnn_dense_fwd.launches,
+                    "K5": gnn_dense_bwd.launches,
+                    "K1": decode_step_gathered.launches}
+        run = os.path.join(tmp, "out", "multiverse", "00")
+        with open(os.path.join(run, "val_perf.json")) as f:
+            val_perf = json.load(f)
+        eval_batches = len(val_perf["val_perf"]) * (
+            -(-VAL_EXAMPLES // cfg.batch_size))
+        print("train phase: %d steps in %.3f s (main, evals and saves "
+              "included); first loss %.4f, last 10 mean %.4f; launches K4 "
+              "%d, K5 %d, eval K1 %d (%d eval batches)"
+              % (steps, wall, losses[0], losses[-10:].mean(), launches["K4"],
+                 launches["K5"], launches["K1"], eval_batches))
+        if steps != 2 * TRAIN_EXAMPLES // cfg.batch_size \
+                or not np.isfinite(losses).all():
+            raise AssertionError(f"train phase: {steps} steps, losses "
+                                 f"finite: {np.isfinite(losses).all()}")
+        if launches["K4"] != steps * cfg.pred_len \
+                or launches["K5"] != steps * cfg.pred_len:
+            raise AssertionError(f"train phase: K4/K5 ran {launches['K4']}/"
+                                 f"{launches['K5']} times for {steps} steps "
+                                 f"x {cfg.pred_len}")
+        if launches["K1"] != eval_batches * cfg.pred_len:
+            raise AssertionError(f"train phase: the evals' K1 ran "
+                                 f"{launches['K1']} times for "
+                                 f"{eval_batches} batches x {cfg.pred_len}")
+        if not losses[-10:].mean() < losses[0]:
+            raise AssertionError("train phase: the loss did not fall")
+        best_step = val_perf["best"]["step"]
+        ckpts = {sub: list_steps(os.path.join(run, sub))
+                 for sub in ("save", "best")}
+        print("train phase: checkpoints %s, best step %d" % (
+            {k: [s for s, _ in v] for k, v in ckpts.items()}, best_step))
+        if not ckpts["save"] or not ckpts["best"]:
+            raise AssertionError("train phase: a checkpoint directory is "
+                                 "empty")
+        model = load_params_npz(ckpts["best"][-1][1])
+
+        # the best checkpoint decodes through the offline path
+        beam_cfg = cfg.replace(use_beam_search=True, beam_size=20,
+                               diverse_beam=True, fix_num_timestep=1)
+        inputs = inference.synthesize_multifuture_inputs(beam_cfg, 16,
+                                                         seed=1)
+        out, prob = inference.run_multifuture_inference(
+            model, inputs, beam_cfg, batch_size=16, device=dev)
+        check_pickles(out, prob, inputs, beam_cfg)
+        print("train phase: the best checkpoint decoded 16 trajectories "
+              "(K=20 beams)")
+
+        ds = read_data(prepro, "train", cfg)
+        batch = batch_to_device(ds.make_batch(list(range(20)))[0], dev)
+    model = model.to(dev).requires_grad_(True)
+    grad_agreement(model, batch, cfg)
+
+    # buffered throughput: 20 steps, one sync at the end
+    tx = trainer.build_optimizer(cfg, TRAIN_EXAMPLES)
+    opt_state = tx.init(dict(model.named_parameters()))
+    step = trainer.make_train_step(cfg, tx)
+    for _ in range(3):
+        step(model, opt_state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_steps = 20
+    for _ in range(n_steps):
+        step(model, opt_state, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print("train phase: %.2f steps/s, %.1f examples/s buffered (%d steps "
+          "of batch %d, one sync)" % (n_steps / dt, n_steps * 20 / dt,
+                                      n_steps, 20))
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(model, opt_state, batch)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    busy = device_busy_ms(prof)
+    print("train phase: device idle share over 5 steps %.4f (busy %.2f ms "
+          "of %.2f ms)" % (1 - busy / window_ms, busy, window_ms))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(model, opt_state, batch)
+        torch.cuda.synchronize()
+    total = device_busy_ms(prof)
+    top = sorted((e for e in prof.key_averages()
+                  if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:10]
+    print("train phase: one step's device time %.3f ms; top operations:"
+          % total)
+    for e in top:
+        print("  %8.3f ms %5.1f%% x%-4d %s" % (
+            e.self_device_time_total / 1e3,
+            100 * e.self_device_time_total / 1e3 / total, e.count,
+            e.key[:100]))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -584,9 +996,14 @@ def main() -> int:
     launches["K3"] += serve_phase(QUICKSTART_FLAGS, dev, greedy=True,
                                   n_requests=64)
 
+    stats.update(gnn_kernel_phase(model, cfg, dev))
+    trained = train_phase(dev)
+    launches["K1"] += trained["K1"]
+    launches["K4"], launches["K5"] = trained["K4"], trained["K5"]
+
     print(json.dumps({"kernels": [
         dict(KERNELS[k], launches=launches[k], **stats[k])
-        for k in ("K1", "K2", "K3")]}))
+        for k in ("K1", "K2", "K3", "K4", "K5")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

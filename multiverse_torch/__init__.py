@@ -1,22 +1,26 @@
 """multiverse_torch — the PyTorch / CUDA port of multiverse_tpu.
 
-The K-beam multi-future inference path, held against the JAX package
-``multiverse_tpu`` on the same weights and inputs. Plain tensor code is
-PyTorch; the fused beam decode step is a hand-written CUDA kernel for
-Hopper (``csrc/fused_decode.cu``), built with nvcc at first use. This
-package never imports jax: of the JAX package it uses only the jax-free
-``multiverse_tpu.config`` and ``multiverse_tpu.native``.
+The K-beam and greedy multi-future inference paths, serving, and
+training, held against the JAX package ``multiverse_tpu`` on the same
+weights and inputs. Plain tensor code is PyTorch; every TPU kernel on
+those paths is a hand-written CUDA kernel for Hopper (``csrc/``), built
+with nvcc at first use. This package imports nothing of jax or of the
+JAX package: it keeps its own copies of the host-only modules it needs.
 
 Layout (module names follow ``multiverse_tpu``):
+    config.py      the configuration dataclass
     geometry.py    grid geometry, rasterisation, one-hot cell maps
-    ops/           conv2d, ConvLSTM, GNN, the fused decode step and its
-                   nvcc/ctypes build step
+    ops/           conv2d, ConvLSTM, GNN, the fused decode steps, the
+                   training attention kernels, their nvcc/ctypes build
     models/        Multiverse parameters, scene CNN, greedy decode,
-                   diverse beam search
-    data/          scene segmentation helpers (numpy)
-    inference.py   beam_forward, the offline run, pickle outputs
-    bridge.py      weights from the JAX parameter tree and npz files
-    cli/           mvt-torch-multifuture-inference
+                   model_forward and the losses, diverse beam search
+    data/          the training dataset, batch prefetch, scene helpers
+    train/         optimizers and train steps, evaluation, checkpoints
+    inference.py   beam_forward, greedy_forward, the offline run
+    serving/       the serving engine and its HTTP front ends
+    bridge.py      weights to and from the JAX parameter tree and npz
+    cli/           mvt-torch-train, mvt-torch-test,
+                   mvt-torch-multifuture-inference, mvt-torch-serve
 """
 
 __version__ = "0.1.0"

@@ -3,6 +3,8 @@
 * :func:`params_from_jax` takes the JAX package's ``init_params`` tree
   turned to numpy (``jax.tree_util.tree_map(np.asarray, params)``) and
   returns a module with the same names and values;
+  :func:`params_to_numpy_tree` is its inverse (a trained module back to
+  the JAX layout, as numpy);
 * :func:`save_params_npz` / :func:`load_params_npz` keep a flat npz
   whose keys are the tree paths joined with "/"
   (``scales/0/dec_class/kernel``), which is how the CLI takes weights.
@@ -28,6 +30,19 @@ def params_from_jax(tree: Mapping) -> Multiverse:
     """Module (on the CPU) from a nested mapping of numpy arrays with the
     JAX parameter tree's layout (HWIO kernels), name for name."""
     return Multiverse(_to_torch(tree))
+
+
+def params_to_numpy_tree(model: Multiverse) -> dict:
+    """Nested dict of f32 numpy arrays with the JAX parameter tree's
+    layout, name for name: the inverse of :func:`params_from_jax`."""
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        *parents, leaf = name.split(".")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = p.detach().float().cpu().numpy()
+    return tree
 
 
 def save_params_npz(model: Multiverse, path: str) -> None:

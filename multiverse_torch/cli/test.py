@@ -1,0 +1,139 @@
+"""mvt-torch-test: single-future evaluation of a trained checkpoint.
+
+The counterpart of ``mvt-test`` (``multiverse_tpu/cli/test.py``;
+reference: code/test.py): loads the test split, restores the port's
+checkpoint (the latest of ``save``, or of ``best`` with
+``--load_best``, or ``--load_from`` an npz file or directory), runs the
+full evaluate loop and prints the metric table in the same format.
+``--device`` picks the device (default cuda). With
+``--use_beam_search`` and ``--save_output`` the beam ids and log-probs
+of the beam decode go into the output pickle as well.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from multiverse_torch.bridge import check_params, load_params_npz
+from multiverse_torch.cli.common import add_model_args, config_from_args
+from multiverse_torch.cli.train import resolve_device
+from multiverse_torch.data.dataset import batch_to_device, read_data
+from multiverse_torch.inference import beam_forward
+from multiverse_torch.models import BeamOutputs, Multiverse
+from multiverse_torch.train.checkpoints import (
+    CheckpointManager,
+    process_out_dirs,
+    resolve_checkpoint,
+)
+from multiverse_torch.train.evaluate import evaluate
+from multiverse_torch.train.trainer import make_eval_step
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="mvt-torch-test",
+                                     description=__doc__)
+    parser.add_argument("prepropath", type=str)
+    parser.add_argument("outbasepath", type=str)
+    parser.add_argument("modelname", type=str)
+    parser.add_argument("--runId", type=int, default=0)
+    parser.add_argument("--load_best", action="store_true")
+    parser.add_argument("--load_from", type=str, default=None,
+                        help="an npz checkpoint, or a save/best directory")
+    parser.add_argument("--batch_size", type=int, default=64)
+    parser.add_argument("--save_output", default=None)
+    parser.add_argument("--use_gt_grid", action="store_true")
+    parser.add_argument("--per_scene_eval", action="store_true")
+    parser.add_argument("--only_scene", default=None,
+                        help="restrict evaluation to one scene token "
+                             "(e.g. 0400)")
+    parser.add_argument("--show_center_only", action="store_true",
+                        help="include the grid-center-only ADE/FDE "
+                             "ablation in the key-metric summary")
+    parser.add_argument("--show_grid_acc_at_T", action="store_true",
+                        help="include per-timestep accuracies at "
+                             "T=0,4,9,11 in the key-metric summary")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu")
+    add_model_args(parser)
+    return parser
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = config_from_args(args)
+    test_data = read_data(args.prepropath, "test", cfg)
+
+    if args.load_from is not None:
+        path = resolve_checkpoint(args.load_from)
+    else:
+        ckpt = CheckpointManager(process_out_dirs(
+            args.outbasepath, args.modelname, args.runId))
+        path = resolve_checkpoint(ckpt.best_dir if args.load_best
+                                  else ckpt.save_dir)
+    model = load_params_npz(path)
+    check_params(model, Multiverse.init(cfg))
+    model = model.to(device)
+    eval_step = make_eval_step(cfg)
+    # eval_fn and beam_fn get the same batch back to back: upload once
+    placed = {"src": None, "dev": None}
+
+    def on_device(batch):
+        if placed["src"] is not batch:
+            placed["src"], placed["dev"] = batch, batch_to_device(batch,
+                                                                  device)
+        return placed["dev"]
+
+    def eval_fn(batch):
+        cl, rg = eval_step(model, on_device(batch))
+        return ({i: v.cpu().numpy() for i, v in cl.items()},
+                {i: v.cpu().numpy() for i, v in rg.items()})
+
+    beam_fn = None
+    if cfg.use_beam_search:
+        def beam_fn(batch):
+            with torch.inference_mode():
+                beam, _ = beam_forward(model, on_device(batch), cfg)
+            return BeamOutputs(*(None if t is None else t.cpu().numpy()
+                                 for t in beam))
+
+    perf = evaluate(test_data, cfg, eval_fn, batch_size=args.batch_size,
+                    per_scene_eval=args.per_scene_eval,
+                    use_gt_grid=args.use_gt_grid,
+                    save_output=args.save_output, beam_step_fn=beam_fn,
+                    only_scene=args.only_scene)
+
+    # the metric table (reference: code/test.py:157-182): every metric
+    # on its own "key, value" line, then the key metrics' names and
+    # values on two lines
+    print("performance:")
+    key_metrics = []
+    for i in cfg.active_scales:
+        key_metrics += ["grid%d_acc" % i, "grid%d_traj_ade" % i,
+                        "grid%d_traj_fde" % i]
+        if args.show_center_only:
+            key_metrics += ["grid%d_traj_centerOnly_ade" % i,
+                            "grid%d_traj_centerOnly_fde" % i]
+        if args.show_grid_acc_at_T:
+            key_metrics += ["grid%d_acc_@T=%d" % (i, t)
+                            for t in (0, 4, 9, 11)]
+    if args.per_scene_eval:
+        scenes = ["0000", "0002", "0400", "0401", "0500"]
+        key_metrics += ["%s_ade" % s for s in scenes]
+        key_metrics += ["%s_fde" % s for s in scenes]
+    numbers = []
+    for k in sorted(perf):
+        print("%s, %s" % (k, perf[k]))
+        if k in key_metrics:
+            numbers.append(("%s" % perf[k], k))
+    print(" ".join(k for _, k in numbers))
+    print(" ".join(v for v, _ in numbers))
+    return perf
+
+
+if __name__ == "__main__":
+    main()

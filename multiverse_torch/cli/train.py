@@ -1,0 +1,239 @@
+"""mvt-torch-train: the training command of the port.
+
+The counterpart of ``mvt-train`` (``multiverse_tpu/cli/train.py``;
+reference: code/train.py), with the same flags: periodic save and val
+eval, best-model tracking on grid{val_grid_num}_traj_ade, the NaN-loss
+abort within one ``--loss_fetch_period``, moving-average loss displays
+and ``val_perf.json``. Differences:
+
+* ``--device`` picks the device (default cuda; there is no CPU fallback,
+  ``--device cpu`` runs the plain PyTorch versions of the kernels);
+* one device: ``--model_parallel`` other than 1 is refused;
+* checkpoints are the port's npz files (``train/checkpoints.py``), each
+  a ``--params_npz`` file for the inference and serving commands;
+  ``--load``/``--load_best``/``--load_from`` read them, not orbax runs;
+* ``--profile`` writes a ``torch.profiler`` trace.
+
+On the card with ``--compute_dtype bfloat16`` the class decoder's graph
+attention runs the hand-written kernels K4 (forward) and K5 (backward)
+at every decode step, and the periodic eval's class decode the fused
+decode step (K1, or K2/K3 under ``--decode_quant``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import sys
+import time
+
+import torch
+
+from multiverse_torch.bridge import check_params, load_params_npz
+from multiverse_torch.cli.common import (
+    LossBuffer,
+    add_model_args,
+    add_train_args,
+    config_from_args,
+)
+from multiverse_torch.data.dataset import batch_to_device, read_data
+from multiverse_torch.data.prefetch import prefetch
+from multiverse_torch.models import Multiverse
+from multiverse_torch.train.checkpoints import (
+    CheckpointManager,
+    process_out_dirs,
+    resolve_checkpoint,
+)
+from multiverse_torch.train.evaluate import evaluate
+from multiverse_torch.train.trainer import (
+    build_optimizer,
+    make_eval_step,
+    make_train_step,
+)
+from multiverse_torch.utils import MovingAverage, profile_trace
+
+PROG = "mvt-torch-train"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog=PROG, description=__doc__)
+    parser.add_argument("prepropath", type=str)
+    parser.add_argument("outbasepath", type=str,
+                        help="full path will be outbasepath/modelname/runId")
+    parser.add_argument("modelname", type=str)
+    parser.add_argument("--runId", type=int, default=0)
+    parser.add_argument("--load", action="store_true")
+    parser.add_argument("--load_best", action="store_true")
+    parser.add_argument("--load_from", type=str, default=None,
+                        help="an npz checkpoint, or a save/best directory "
+                             "of the port")
+    parser.add_argument("--val_grid_num", type=int, default=0,
+                        help="which grid scale for the validation metric")
+    parser.add_argument("--save_period", type=int, default=300)
+    parser.add_argument("--loss_moving_avg_step", default=100, type=int)
+    parser.add_argument("--loss_fetch_period", default=20, type=int,
+                        help="fetch the per-step losses to the host every "
+                             "N steps (1: NaN abort on the exact step; "
+                             "larger keeps the card's stream unblocked, "
+                             "the abort then lags at most N steps)")
+    parser.add_argument("--check_model", action="store_true",
+                        help="print parameter shapes and exit")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--profile", default=None,
+                        help="directory for a torch.profiler trace")
+    parser.add_argument("--model_parallel", type=int, default=1,
+                        help="only 1: the port trains on one device")
+    parser.add_argument("--per_scene_eval", action="store_true")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu")
+    add_model_args(parser)
+    add_train_args(parser)
+    return parser
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device %r requested but CUDA is not available; pass "
+            "--device cpu to train with the plain PyTorch versions" % name)
+    return device
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    if args.model_parallel != 1:
+        sys.exit("%s: --model_parallel %d: the port trains on one device "
+                 "(tensor parallelism is not ported)"
+                 % (PROG, args.model_parallel))
+    device = resolve_device(args.device)
+    # full f32 products, as the JAX package's Precision.HIGHEST
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = config_from_args(args)
+
+    train_data = read_data(args.prepropath, "train", cfg)
+    val_data = read_data(args.prepropath, "val", cfg)
+
+    model = Multiverse.init(cfg, seed=args.seed, trainable=True)
+    if args.check_model:
+        for name, p in model.named_parameters():
+            print("%s %s" % (name.replace(".", "/"), tuple(p.shape)))
+        return
+
+    outpath = process_out_dirs(args.outbasepath, args.modelname, args.runId)
+    with open(os.path.join(outpath, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    ckpt = CheckpointManager(outpath)
+
+    loaded = None
+    if args.load_from is not None:
+        loaded = load_params_npz(resolve_checkpoint(args.load_from))
+    elif args.load or args.load_best:
+        loaded = ckpt.restore_params(best=args.load_best)
+    if loaded is not None:
+        check_params(loaded, model)
+        model = loaded.requires_grad_(True)
+    model = model.to(device)
+    tx = build_optimizer(cfg, train_data.num_examples)
+    opt_state = tx.init(dict(model.named_parameters()))
+    # new saves continue above any steps already in this run dir (the
+    # schedule restarts at 0, as the reference's restore does)
+    step_offset = ckpt.latest_step() or 0
+
+    train_step = make_train_step(cfg, tx)
+    eval_step = make_eval_step(cfg)
+
+    def eval_fn(batch):
+        cl, rg = eval_step(model, batch_to_device(batch, device))
+        return ({i: v.cpu().numpy() for i, v in cl.items()},
+                {i: v.cpu().numpy() for i, v in rg.items()})
+
+    steps_per_epoch = int(math.ceil(train_data.num_examples / cfg.batch_size))
+    num_steps = steps_per_epoch * cfg.num_epochs
+    print("batch_size:%d, epochs:%d, %d steps/epoch, total %d steps, "
+          "eval/save every %d steps, device=%s" % (
+              cfg.batch_size, cfg.num_epochs, steps_per_epoch, num_steps,
+              args.save_period, device))
+
+    metric = "grid%d_traj_ade" % args.val_grid_num
+    best = {metric: float("inf"), "step": -1}
+    loss_ma = MovingAverage(args.loss_moving_avg_step)
+    wd_ma = MovingAverage(args.loss_moving_avg_step)
+    val_perf = []
+    finalperf = None
+    global_step = 0
+    loss_buf = LossBuffer(loss_ma, args.loss_fetch_period,
+                          aux_mas={"wd": wd_ma})
+
+    with profile_trace(args.profile):
+        if loaded is not None:
+            # the loaded model's validation baseline, so best tracking
+            # never ends worse than the starting checkpoint
+            evalperf = evaluate(val_data, cfg, eval_fn,
+                                per_scene_eval=args.per_scene_eval)
+            best[metric] = evalperf[metric]
+            best["step"] = step_offset
+            val_perf.append((None, evalperf, step_offset, False))
+            print("loaded baseline: val %s=%.4f" % (metric, evalperf[metric]))
+
+        # steps/s flush to flush: the flush's copy to the host is the
+        # sync point
+        sync_t, sync_step = time.perf_counter(), 0
+        dropout = cfg.keep_prob < 1.0
+        with prefetch(train_data.get_batches(
+                cfg.batch_size, num_steps=num_steps), depth=2) as batches:
+            for batch, _ in batches:
+                global_step += 1
+                # one dropout seed per step
+                rng = (args.seed + 1) * 1_000_003 + global_step \
+                    if dropout else None
+                losses = train_step(model, opt_state,
+                                    batch_to_device(batch, device), rng)
+                loss_buf.put(global_step, losses["total"],
+                             aux={"wd": losses["wd"]})
+                if global_step % args.save_period == 0 \
+                        or global_step == num_steps:
+                    loss_buf.flush()
+                    now = time.perf_counter()
+                    steps_per_sec = (global_step - sync_step) / max(
+                        now - sync_t, 1e-9)
+                    sync_t, sync_step = now, global_step
+                    ckpt.save(global_step + step_offset, model)
+                    evalperf = evaluate(val_data, cfg, eval_fn,
+                                        per_scene_eval=args.per_scene_eval)
+                    print("step %d: loss(ma)=%s wd(ma)=%s %.1f steps/s "
+                          "| val: %s (best %s=%.4f @%d)" % (
+                              global_step, loss_ma, wd_ma, steps_per_sec,
+                              {k: round(v, 4) for k, v in sorted(
+                                  evalperf.items()) if "@T" not in k},
+                              metric, best[metric], best["step"]))
+                    is_best = evalperf[metric] < best[metric]
+                    if is_best:
+                        best[metric] = evalperf[metric]
+                        best["step"] = global_step + step_offset
+                        ckpt.save(global_step + step_offset, model,
+                                  best=True)
+                    # every eval point is recorded: val_perf.json holds
+                    # the whole curve
+                    val_perf.append((loss_ma.me(), evalperf,
+                                     global_step + step_offset, is_best))
+                    finalperf = evalperf
+        loss_buf.flush()
+
+    with open(os.path.join(outpath, "val_perf.json"), "w") as f:
+        # json has no Infinity: a run too short to eval stores null
+        best_out = dict(best)
+        if math.isinf(best_out[metric]):
+            best_out[metric] = None
+        json.dump({"best": best_out, "val_perf": val_perf}, f, indent=2,
+                  default=float)
+    if finalperf is not None:
+        print("best val %s: %.4f at step %d; final %s=%.4f" % (
+            metric, best[metric], best["step"], metric, finalperf[metric]))
+
+
+if __name__ == "__main__":
+    main()

@@ -123,10 +123,13 @@ class MultiverseConfig:
     # diverse_gamma > 1.
     beam_select: str = "twostage"
 
-    # Training options of the JAX package, kept so that configurations
-    # round-trip between the two packages; the port has no trainer yet.
+    # Recompute each encoder/decoder step in the backward
+    # (torch.utils.checkpoint) instead of keeping its activations.
     remat: bool = False
 
+    # The JAX package's paired encoder/decoder scans (the same math, a
+    # TPU scheduling device); accepted so that configurations
+    # round-trip, and run as the separate scans by the port.
     fuse_scan_pairs: bool = True
 
     # Run the fused decode step (a hand-written CUDA kernel on the

@@ -1,1 +1,2 @@
-"""Host-side data helpers of the port (numpy)."""
+"""Host-side data of the port (numpy): the training dataset, batch
+prefetch and scene segmentation helpers."""

@@ -23,6 +23,7 @@ import torch
 
 from multiverse_torch.config import MultiverseConfig
 from multiverse_torch.data import scene as scene_lib
+from multiverse_torch.data.dataset import batch_to_device
 from multiverse_torch.geometry import (
     grid_centers,
     one_hot_grid,
@@ -336,24 +337,6 @@ def make_batch(
         obs_scene=new_idx,
         scene_feat=table,
         pred_length=inputs.pred_lengths[idxs],
-    )
-
-
-def batch_to_device(batch: Batch, device: torch.device) -> Batch:
-    """Copy a numpy Batch to ``device`` (through pinned memory, without
-    waiting, when the device is a GPU)."""
-    def put(a):
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t.to(device)
-    return Batch(
-        obs_grid_class=put(batch.obs_grid_class),
-        obs_grid_target_all=tuple(put(a) for a in batch.obs_grid_target_all),
-        obs_scene=put(batch.obs_scene),
-        scene_feat=put(batch.scene_feat),
-        pred_length=None if batch.pred_length is None
-        else put(batch.pred_length),
     )
 
 

@@ -33,7 +33,7 @@ from multiverse_torch.ops import (
     ConvLSTMState,
     conv2d,
     convlstm_step,
-    gnn_step_neighbors,
+    gnn_step_auto,
     make_decode_step,
 )
 from multiverse_torch.ops.layers import get_activation
@@ -193,8 +193,9 @@ def diverse_beam_search(
             emb = emb_table[prev_ids.reshape(-1).long()]
             hh = _fold(state.h)
             if use_gnn:
-                hh = hh + gnn_step_neighbors(hh, scene_nk,
-                                             compute_dtype=compute_dtype)
+                hh = hh + gnn_step_auto(hh, scene_nk,
+                                        compute_dtype=compute_dtype,
+                                        allow_pallas=cfg.allow_pallas)
             out, new_state_f = convlstm_step(
                 cell_p, emb, ConvLSTMState(c=_fold(state.c), h=hh),
                 compute_dtype=compute_dtype)

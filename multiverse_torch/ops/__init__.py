@@ -1,8 +1,9 @@
-"""Layer library: conv, ConvLSTM, GNN, the fused decode-step kernels and
-the int8 tiers' operands."""
+"""Layer library: conv, ConvLSTM, GNN, the fused decode-step kernels, the
+int8 tiers' operands and the training attention kernels."""
 
 from multiverse_torch.ops.convlstm import (  # noqa: F401
     ConvLSTMState,
+    input_dropout,
     convlstm_init,
     convlstm_scan,
     convlstm_step,
@@ -16,12 +17,22 @@ from multiverse_torch.ops.fused_decode import (  # noqa: F401
 from multiverse_torch.ops.gnn import (  # noqa: F401
     gnn_neighbor_mask,
     gnn_step,
+    gnn_step_auto,
     gnn_step_neighbors,
+)
+from multiverse_torch.ops.fused_gnn import (  # noqa: F401
+    GnnDense,
+    gnn_dense_bwd,
+    gnn_dense_bwd_ref,
+    gnn_dense_fwd,
+    gnn_dense_fwd_ref,
+    gnn_step_fused,
 )
 from multiverse_torch.ops.layers import (  # noqa: F401
     conv2d,
     get_activation,
     init_conv,
+    l2_weight_decay,
 )
 from multiverse_torch.ops.quant import (  # noqa: F401
     DecodeQuant,

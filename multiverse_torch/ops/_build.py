@@ -46,6 +46,8 @@ _SIGNATURES = {
     "mv_gnn_attention_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mv_gate_lstm_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    "mv_gnn_dense_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mv_gnn_dense_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

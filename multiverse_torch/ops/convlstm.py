@@ -8,7 +8,10 @@ PyTorch port of ``multiverse_tpu/ops/convlstm.py``:
     h' = tanh(c') * sigmoid(o)
 
 On the reduced-precision path the gates and the carried state are
-stored in the compute dtype, as in the JAX package.
+stored in the compute dtype, as in the JAX package. Train-time input
+dropout (:func:`input_dropout`) draws from an explicit
+``torch.Generator``; the two frameworks' random streams differ, so only
+its statistics match the JAX package's.
 """
 
 from __future__ import annotations
@@ -18,8 +21,33 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from multiverse_torch.ops.layers import Params, same_padding
+
+
+def dropout_mask(generator: torch.Generator, shape, keep_prob: float,
+                 device) -> torch.Tensor:
+    """Bool keep-mask of ``shape``, each entry True with probability
+    ``keep_prob``, drawn from ``generator`` (on ``device``)."""
+    return torch.rand(shape, generator=generator, device=device) < keep_prob
+
+
+def apply_dropout(x: torch.Tensor, keep: torch.Tensor,
+                  keep_prob: float) -> torch.Tensor:
+    return torch.where(keep, x * (1.0 / keep_prob),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def input_dropout(generator: torch.Generator, x: torch.Tensor,
+                  keep_prob: float) -> torch.Tensor:
+    """Inverted dropout on a cell input (tf.nn.dropout semantics): each
+    entry is kept with probability ``keep_prob`` and scaled by
+    1/keep_prob. Every call draws a fresh mask from ``generator``, so one
+    generator per site gives a fresh mask per step, as the reference's
+    non-variational DropoutWrapper does."""
+    return apply_dropout(
+        x, dropout_mask(generator, x.shape, keep_prob, x.device), keep_prob)
 
 
 class ConvLSTMState(NamedTuple):
@@ -74,27 +102,47 @@ def convlstm_scan(
     seq_lengths: Optional[torch.Tensor] = None,
     forget_bias: float = 1.0,
     compute_dtype: Optional[torch.dtype] = None,
+    remat: bool = False,
+    keep_prob: float = 1.0,
+    dropout_rng: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, ConvLSTMState]:
     """Run the cell over time from a zero state. xs: [N, T, H, W, Cin].
     Past an example's ``seq_lengths`` entry its output is zero and its
-    state frozen (tf.nn.dynamic_rnn semantics). Returns (outputs
-    [N, T, H, W, D], final state)."""
+    state frozen (tf.nn.dynamic_rnn semantics).
+
+    ``remat`` checkpoints each step (``torch.utils.checkpoint``): the
+    backward recomputes the gate conv instead of keeping every step's
+    residuals. ``keep_prob`` < 1 with a ``dropout_rng`` applies
+    :func:`input_dropout` to each step's input; the mask is drawn
+    outside the checkpointed step, so the recomputation sees the same
+    mask. Returns (outputs [N, T, H, W, D], final state)."""
+    dropout = keep_prob < 1.0 and dropout_rng is not None
     N, T, H, W = xs.shape[:4]
     D = params["kernel"].shape[-1] // 4
     zeros = torch.zeros((N, H, W, D), dtype=compute_dtype or torch.float32,
                         device=xs.device)
-    state = ConvLSTMState(c=zeros, h=zeros)
-    outs = []
-    for t in range(T):
-        out, new_state = convlstm_step(params, xs[:, t], state, forget_bias,
-                                       compute_dtype)
+
+    def step(t, x_t, c, h):
+        out, new_state = convlstm_step(params, x_t, ConvLSTMState(c=c, h=h),
+                                       forget_bias, compute_dtype)
         if seq_lengths is not None:
             active = (t < seq_lengths).reshape(N, 1, 1, 1)
             out = torch.where(active, out, torch.zeros((), dtype=out.dtype,
                                                        device=out.device))
             new_state = ConvLSTMState(
-                c=torch.where(active, new_state.c, state.c),
-                h=torch.where(active, new_state.h, state.h))
-        state = new_state
+                c=torch.where(active, new_state.c, c),
+                h=torch.where(active, new_state.h, h))
+        return out, new_state.c, new_state.h
+
+    c, h = zeros, zeros
+    outs = []
+    for t in range(T):
+        x_t = xs[:, t]
+        if dropout:
+            x_t = input_dropout(dropout_rng, x_t, keep_prob)
+        if remat:
+            out, c, h = checkpoint(step, t, x_t, c, h, use_reentrant=False)
+        else:
+            out, c, h = step(t, x_t, c, h)
         outs.append(out)
-    return torch.stack(outs, dim=1), state
+    return torch.stack(outs, dim=1), ConvLSTMState(c=c, h=h)

@@ -67,6 +67,29 @@ def gnn_step(
     return agg.reshape(N, H, W, D)
 
 
+def gnn_step_auto(
+    hidden: torch.Tensor,
+    scene_feat: Optional[torch.Tensor] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+    allow_pallas: bool = True,
+) -> torch.Tensor:
+    """Dispatch of ``multiverse_tpu/ops/gnn.py:gnn_step_auto``: on the
+    bf16 path with CUDA tensors the attention runs K4 with its backward
+    K5 (:func:`~multiverse_torch.ops.fused_gnn.gnn_step_fused`, which
+    also normalises the node rows in f32); everywhere else the exact
+    9-neighbour form, as the JAX package does off the TPU.
+    ``allow_pallas`` is ``cfg.allow_pallas`` (the name is the JAX
+    package's)."""
+    if (allow_pallas and compute_dtype == torch.bfloat16
+            and hidden.device.type == "cuda"):
+        from multiverse_torch.ops.fused_gnn import gnn_step_fused
+
+        return gnn_step_fused(
+            hidden.to(compute_dtype),
+            None if scene_feat is None else scene_feat.to(compute_dtype))
+    return gnn_step_neighbors(hidden, scene_feat, compute_dtype=compute_dtype)
+
+
 def gnn_step_neighbors(
     hidden: torch.Tensor,
     scene_feat: Optional[torch.Tensor] = None,

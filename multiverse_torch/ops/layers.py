@@ -81,3 +81,31 @@ def conv2d(
     if activation is not None:
         out = activation(out)
     return out.float()
+
+
+def _named_leaves(params, prefix: str = ""):
+    """(dotted name, tensor) of every leaf of a :class:`Multiverse`
+    module or a nested mapping of tensors, in name order."""
+    if hasattr(params, "named_parameters"):
+        return sorted(params.named_parameters(), key=lambda kv: kv[0])
+    out = []
+    for k in sorted(params):
+        v = params[k]
+        name = prefix + k
+        if isinstance(v, torch.Tensor):
+            out.append((name, v))
+        else:
+            out.extend(_named_leaves(v, name + "."))
+    return out
+
+
+def l2_weight_decay(params, wd: float) -> torch.Tensor:
+    """0.5 * wd * sum ||w||^2 over every leaf named ``w`` (tf.nn.l2_loss
+    over the reference's ``.*/W`` selection); ConvLSTM kernels are named
+    ``kernel`` and excluded, as in the reference."""
+    leaves = _named_leaves(params)
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0][1].device)
+    for name, leaf in leaves:
+        if name.rsplit(".", 1)[-1] == "w":
+            total = total + 0.5 * torch.sum(torch.square(leaf.float()))
+    return total * wd

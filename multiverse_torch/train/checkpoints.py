@@ -1,0 +1,87 @@
+"""Checkpoints with the reference's {save, best} twin layout.
+
+The port's counterpart of ``multiverse_tpu/train/checkpoints.py``
+(reference: code/pred_utils.py:98-107 for outbase/model/runId/{save,
+best}, code/train.py:170-171 for the twin savers keeping the latest 5).
+A save holds the parameters only, as ``mvt-train`` saves them: one flat
+npz per step (``step_00000300.npz``) in ``bridge.save_params_npz``'s
+format, so a trained checkpoint is a ``--params_npz`` file for
+``mvt-torch-multifuture-inference`` and ``mvt-torch-serve``. The JAX
+package's orbax directories are not read by the port yet.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import List, Optional, Tuple
+
+from multiverse_torch.bridge import load_params_npz, save_params_npz
+
+_STEP = re.compile(r"^step_(\d+)\.npz$")
+
+
+def list_steps(directory: str) -> List[Tuple[int, str]]:
+    """(step, path) of every checkpoint in ``directory``, by step."""
+    if not os.path.isdir(directory):
+        return []
+    found = []
+    for name in os.listdir(directory):
+        m = _STEP.match(name)
+        if m:
+            found.append((int(m.group(1)), os.path.join(directory, name)))
+    return sorted(found)
+
+
+def resolve_checkpoint(path: str) -> str:
+    """An npz file, or the latest step of a ``save``/``best`` directory.
+    Raises on a directory that holds no port checkpoint (an orbax
+    directory of the JAX package among them)."""
+    if os.path.isfile(path):
+        return path
+    steps = list_steps(path)
+    if steps:
+        return steps[-1][1]
+    if os.path.isdir(path) and any(n.isdigit() for n in os.listdir(path)):
+        raise ValueError(
+            "%s looks like an orbax checkpoint of the JAX package; the "
+            "port reads only its own npz checkpoints" % path)
+    raise FileNotFoundError("no checkpoint in %s" % path)
+
+
+class CheckpointManager:
+    """``outpath/save`` and ``outpath/best``, each keeping the latest
+    ``max_to_keep`` steps."""
+
+    def __init__(self, outpath: str, max_to_keep: int = 5):
+        self.save_dir = os.path.join(outpath, "save")
+        self.best_dir = os.path.join(outpath, "best")
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.save_dir, exist_ok=True)
+        os.makedirs(self.best_dir, exist_ok=True)
+
+    def save(self, step: int, model, best: bool = False) -> str:
+        directory = self.best_dir if best else self.save_dir
+        path = os.path.join(directory, "step_%08d.npz" % step)
+        tmp = path + ".tmp.npz"
+        save_params_npz(model, tmp)
+        os.replace(tmp, path)   # a reader never sees half a file
+        for _, old in list_steps(directory)[:-self.max_to_keep]:
+            os.remove(old)
+        return path
+
+    def latest_step(self, best: bool = False) -> Optional[int]:
+        steps = list_steps(self.best_dir if best else self.save_dir)
+        return steps[-1][0] if steps else None
+
+    def restore_params(self, best: bool = False):
+        """The latest saved parameters as a (frozen) Multiverse."""
+        return load_params_npz(resolve_checkpoint(
+            self.best_dir if best else self.save_dir))
+
+
+def process_out_dirs(outbasepath: str, modelname: str, run_id: int) -> str:
+    """outbase/model/runId layout (reference: pred_utils.py:98-107)."""
+    outpath = os.path.join(outbasepath, modelname, str(run_id).zfill(2))
+    os.makedirs(outpath, exist_ok=True)
+    return outpath

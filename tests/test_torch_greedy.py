@@ -23,6 +23,7 @@ from multiverse_tpu.ops import pallas_decode as jpd
 from multiverse_torch import inference as tinf
 from multiverse_torch.bridge import params_from_jax, save_params_npz
 from multiverse_torch.cli import multifuture_inference as tcli
+from multiverse_torch.data.dataset import batch_to_device
 from multiverse_torch.geometry import xy_to_cell, xy_to_cell_np
 from multiverse_torch.models import multiverse as tmv
 from multiverse_torch.ops import ConvLSTMState as TState
@@ -51,8 +52,8 @@ def _batches(cfg, n=5):
                                                 max_pred_len=6)
     jb = jax.tree_util.tree_map(
         jnp.asarray, jinf.make_batch(inputs, np.arange(n), cfg))
-    tb = tinf.batch_to_device(tinf.make_batch(inputs, np.arange(n), cfg),
-                              torch.device("cpu"))
+    tb = batch_to_device(tinf.make_batch(inputs, np.arange(n), cfg),
+                         torch.device("cpu"))
     return jb, tb
 
 

@@ -26,6 +26,7 @@ from multiverse_tpu.models import init_params as jax_init_params
 from multiverse_torch import inference as tinf
 from multiverse_torch.bridge import params_from_jax, save_params_npz
 from multiverse_torch.cli import multifuture_inference as tcli
+from multiverse_torch.data.dataset import batch_to_device
 from synthetic import write_multifuture_dataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,8 +54,8 @@ def _batches(cfg, n=5):
                                                 max_pred_len=6)
     jb = jax.tree_util.tree_map(
         jnp.asarray, jinf.make_batch(inputs, np.arange(n), cfg))
-    tb = tinf.batch_to_device(tinf.make_batch(inputs, np.arange(n), cfg),
-                              torch.device("cpu"))
+    tb = batch_to_device(tinf.make_batch(inputs, np.arange(n), cfg),
+                         torch.device("cpu"))
     return jb, tb
 
 
@@ -258,8 +259,9 @@ def test_cuda_request_raises_without_cuda():
 
 def test_port_never_imports_jax():
     """With jax and the JAX package made unimportable, every module of
-    the port and chip_smoke.py import, and the beam, greedy and int8a
-    paths run on the CPU."""
+    the port and chip_smoke.py import, the beam, greedy and int8a paths
+    run on the CPU, and so does one bf16 train step through
+    mvt-torch-train's own pieces."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for name in ('jax', 'jaxlib', 'multiverse_tpu'):\n"
@@ -284,6 +286,19 @@ def test_port_never_imports_jax():
         "        Multiverse.init(cfg), inp, cfg.replace(decode_quant=quant),\n"
         "        batch_size=2, greedy=greedy, device='cpu')\n"
         "    assert len(out) == 3 and len(prob) == (0 if greedy else 3)\n"
+        "from multiverse_torch.data import dataset\n"
+        "from multiverse_torch.train import trainer\n"
+        "tcfg = cfg.replace(use_beam_search=False, obs_len=4, pred_len=3,\n"
+        "                   use_soft_grid_class=True, keep_prob=0.8)\n"
+        "ds = dataset.dataset_from_arrays(dataset.synthesize_split(\n"
+        "    tcfg, 4, seed=0), tcfg, 'train')\n"
+        "model = Multiverse.init(tcfg, trainable=True)\n"
+        "tx = trainer.build_optimizer(tcfg, 4)\n"
+        "losses = trainer.make_train_step(tcfg, tx)(\n"
+        "    model, tx.init(dict(model.named_parameters())),\n"
+        "    dataset.batch_to_device(ds.make_batch([0, 1, 2, 3])[0], 'cpu'),\n"
+        "    rng=1)\n"
+        "assert float(losses['total']) > 0\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
         "             and m.startswith(('jax', 'multiverse_tpu')))\n"
         "print('MODULES', len(names), 'JAX_MODULES', bad)\n"

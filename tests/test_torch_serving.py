@@ -19,6 +19,7 @@ from multiverse_torch import inference as tinf
 from multiverse_torch.bridge import params_from_jax
 from multiverse_torch.cli import serve as tserve
 from multiverse_torch.config import MultiverseConfig
+from multiverse_torch.data.dataset import batch_to_device
 from multiverse_torch.geometry import grid_centers, rasterize_traj_np
 from multiverse_torch.models import Batch, Multiverse
 from multiverse_torch.serving import wire as twire
@@ -68,7 +69,7 @@ def _direct(model, cfg, obs, pred_len, B, T):
     rows = np.zeros((B * cfg.obs_len, cfg.scene_h, cfg.scene_w,
                      cfg.scene_class), np.uint8)
     rows[..., 0] = 1
-    batch = tinf.batch_to_device(Batch(
+    batch = batch_to_device(Batch(
         obs_grid_class=np.tile(cls[None], (B, 1, 1)),
         obs_grid_target_all=(np.tile(tgt[i][None], (B, 1, 1, 1, 1)),),
         obs_scene=np.arange(B * cfg.obs_len,
