@@ -10,22 +10,41 @@
    18x32 grid, D=256, E=32, C=64, the model's decoder weights, permuted
    parents, random ids): K1 (bf16, ``decode_step_gathered``), K2 and K3
    (``decode_step_gathered_q8``, the "int8" and "int8a" tiers, with
-   operands from ``quantize_decode_weights``), each against its plain
-   PyTorch version on the card. Fails above an absolute error of 2e-2
-   (the tolerance of the JAX package's own kernel tests). Times both
-   (medians, CUDA events) and computes each kernel's bound from the
-   run's shapes; prints each launch's device time (torch.profiler).
-   K2 and K3 also fail unless their attention launch's int8 gate inputs
-   (h2_q) equal the plain version's but for rounding ties (at least
-   0.9999 of them equal, none more than one step off).
+   operands from ``quantize_decode_weights``), K7
+   (``decode_step_gathered_q8dyn``, "int8_dyn", operands from
+   ``quantize_decode_weights_v2``), K8 (``decode_step``) on K1's rows
+   gathered by hand and K9 (``decode_step_v2``) on the tables of the
+   model's dec_class_emb and dec_class weights; and K6
+   (``convlstm_step_fused``) at the training encoder's step (N = 20,
+   Cx = 64, D = 256, the model's enc_class weights). Each is held
+   against its plain PyTorch version on the card and fails above an
+   absolute error of 2e-2 (the tolerance of the JAX package's own
+   kernel tests). Times both (medians, CUDA events) and computes each
+   kernel's bound from the run's shapes; prints each launch's device
+   time (torch.profiler). K2 and K3 also fail unless their attention
+   launch's int8 gate inputs (h2_q) equal the plain version's but for
+   rounding ties (at least 0.9999 of them equal, none more than one step
+   off). K7 also fails unless its h2_f is within 1e-5 of the plain one
+   but at pixels (at most 0.001 of them) where every channel's
+   difference is explained by whole bf16 steps of the pixel's attention
+   weights, unless its r_p is the exact patch max of that h2_f, and
+   unless its gate launch, fed the plain h2_f and r_p, gives
+   a bf16 c' equal to the plain gate's in at least 0.999 of entries with
+   none more than one bf16 step off, a gate that must reject two planted
+   faults (the recurrent half at K2's static 127/2; h2_f rounded to
+   bf16). K8 must equal K1 within 2e-2, K9 lie within 5e-2 of K8. K6,
+   K8 and K9 run on no path: their main-path launches are 0.
 3. Offline phases: ``run_multifuture_inference`` as
    ``mvt-torch-multifuture-inference`` runs it, with seeded random
    weights, K=20 diverse beams, T up to 25: bf16 on 32 synthetic
    trajectories (2 batches of 16; pickles written, read back and
    checked; beam-id agreement of batch 0 with the plain version
-   printed, which informs and does not gate), then the int8 and int8a
-   tiers on the first 16. Each checks that every decode step went
-   through its kernel and prints trajectories per second.
+   printed, which informs and does not gate), then the int8, int8a and
+   int8_dyn tiers and int8_dyn greedy on the first 16 (int8_dyn's beam
+   ids printed beside int8's; K7 first held against its plain version,
+   as in the kernel phase, at the greedy decode's 16 rows with identity
+   parents). Each checks that every decode step went through its kernel
+   and prints trajectories per second.
 4. Serve phases: ``mvt-torch-serve``'s own pieces (its parser and tier
    defaults: bf16 + int8a on cuda) build a beam ``ServingEngine``
    (max_batch 8, T=12) and a greedy one (max_batch 32). For each, K3 is
@@ -38,7 +57,10 @@
    ran batches x T times, and that one response equals a direct
    forward on the same inputs; prints requests per second, p50 and max
    latency and the batches' padding share (smoke readings: too few
-   requests for a tail percentile or a serving knee).
+   requests for a tail percentile or a serving knee). Then one burst of
+   32 beam requests with ``--compute_dtype bfloat16 --decode_quant
+   int8_dyn`` through ``AsyncPredictionServer``, K7 first held against
+   its plain version, as in the kernel phase, at the engine's 160 rows.
 
 5. Training-kernel phase: K4 (``gnn_dense_fwd``) and K5
    (``gnn_dense_bwd``) at the training shape (N = 20 samples, 18x32,
@@ -99,14 +121,37 @@ from multiverse_torch.data.dataset import (
     synthesize_prepro,
 )
 from multiverse_torch.models import Multiverse
-from multiverse_torch.ops import _build, conv2d, get_activation
+from multiverse_torch.ops import (
+    ConvLSTMState,
+    _build,
+    conv2d,
+    convlstm_step,
+    get_activation,
+)
+from multiverse_torch.ops.fused_cell import (
+    convlstm_step_fused,
+    convlstm_step_fused_ref,
+)
 from multiverse_torch.ops.fused_decode import (
+    build_emb_gates_tables,
+    decode_step,
     decode_step_gathered,
     decode_step_gathered_q8,
     decode_step_gathered_q8_ref,
+    decode_step_gathered_q8dyn,
+    decode_step_gathered_q8dyn_ref,
     decode_step_gathered_ref,
+    decode_step_ref,
+    decode_step_v2,
+    decode_step_v2_ref,
     gate_input_q8,
     gate_input_q8_ref,
+    gate_inputs_q8dyn,
+    gate_inputs_q8dyn_ref,
+    gate_lstm_q8dyn,
+    gate_lstm_q8dyn_ref,
+    h2f_weight_flips,
+    row_scales_q8dyn_ref,
 )
 from multiverse_torch.ops import fused_gnn
 from multiverse_torch.ops import quant as quant_ops
@@ -118,7 +163,10 @@ from multiverse_torch.ops.fused_gnn import (
     gnn_dense_fwd_ref,
     normalised_node,
 )
-from multiverse_torch.ops.quant import quantize_decode_weights
+from multiverse_torch.ops.quant import (
+    quantize_decode_weights,
+    quantize_decode_weights_v2,
+)
 from multiverse_torch.serving.aserver import AsyncPredictionServer
 from multiverse_torch.serving.client import PredictionClient
 from multiverse_torch.serving.engine import RawInputs, rasterize_batch
@@ -132,6 +180,17 @@ TOL = 2e-2
 # requantised from a bf16 copy of h + agg, or int8a attention left in
 # bf16, would stay within TOL on h, c and logits but miss this
 H2Q_SAME_MIN = 0.9999
+# K7's gate inputs: h2_f within H2F_ATOL of the plain version's but at
+# pixels where the attention launch, summing an edge in another order,
+# rounded one or more of the pixel's attention weights to the next bf16
+# value: each such pixel's difference must be explained so, channel by
+# channel (``h2f_weight_flips``), and they may be at most FLIPPED_MAX of
+# the pixels (a rounding that is wrong everywhere would move thousands).
+# r_p must be the exact patch max of the launch's own h2_f (max is exact)
+H2F_ATOL, FLIPPED_MAX = 1e-5, 1e-3
+# K7's gate launch on the plain version's own h2_f and r_p: bf16 c' equal
+# to the plain gate's in at least this share, none more than one step off
+C_SAME_MIN = 0.999
 # one H100 SXM at 700 W: dense tensor-core peaks and HBM rate
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 HBM_BYTES_S = 3.35e12
@@ -151,7 +210,20 @@ KERNELS = {
     "K5": {"name": "gnn_dense_bwd (GnnDense backward)", "route": "cuda",
            "source": "multiverse_torch/csrc/gnn_dense.cu",
            "replaces": "multiverse_tpu/ops/pallas_gnn.py:123"},
+    "K6": {"name": "convlstm_step_fused (ConvLSTM cell)", "route": "cuda",
+           "source": "multiverse_torch/csrc/fused_decode.cu",
+           "replaces": "multiverse_tpu/ops/pallas_cell.py:66"},
+    "K7": {"name": "decode_step_gathered_q8dyn (int8_dyn)", "route": "cuda",
+           "source": "multiverse_torch/csrc/fused_decode_q8.cu",
+           "replaces": "multiverse_tpu/ops/pallas_decode.py:760"},
+    "K8": {"name": "decode_step (no gather)", "route": "cuda",
+           "source": "multiverse_torch/csrc/fused_decode.cu",
+           "replaces": "multiverse_tpu/ops/pallas_decode.py:527"},
+    "K9": {"name": "decode_step_v2 (embedding gates from tables)",
+           "route": "cuda", "source": "multiverse_torch/csrc/fused_decode.cu",
+           "replaces": "multiverse_tpu/ops/pallas_decode.py:322"},
 }
+
 # TRAINING.md's published training command (its --grid_strides is
 # --scene_grid_strides in both trainers) plus bf16, at batch 20, 2
 # epochs and an eval/save every 20 steps
@@ -230,32 +302,45 @@ def kernel_operands(model: Multiverse, cfg: MultiverseConfig, dev,
     return ops, quant, H, W
 
 
-def bound(ops, H, W, E, gate_type: str, attn_type: str) -> dict:
-    """Least time for one step on these inputs: the larger of the bytes
-    it must move (each input read once, each output written once) over
-    the HBM rate and its operations over the tensor-core peak of their
-    type. The embedding table counts only the rows these ids need."""
+def roofline(nbytes: float, ops: dict) -> dict:
+    """Least time for work that moves ``nbytes`` and does ``ops``
+    (operations by type): the larger of the bytes over the HBM rate and
+    the operations over the tensor-core peak of their type."""
+    ops_s = sum(n / PEAK_OPS[t] for t, n in ops.items())
+    bytes_s = nbytes / HBM_BYTES_S
+    return {"bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
+
+
+def bound(ops, H, W, E, gate_type: str, attn_type: str,
+          emb: str = "table", n_scales: int = 1) -> dict:
+    """Least time for one decode step on these inputs: each input read
+    once, each output written once (h, c, scene; h', c', logits), and the
+    gate product, the nine-neighbour attention (edges and aggregation)
+    and the readout. ``emb`` says what the embedding half reads:
+    "table", the table rows these ids need and a gate product over
+    9(E + D) (K1, K2, K3, K7, with ``n_scales`` f32 scale vectors beside
+    the bias); "rows", one row per state row (K8); "tables", the
+    background map and the 5x5 slabs these ids need, the product over 9D
+    only (K9)."""
     NK = ops["prev_ids"].shape[0]
     D = ops["h"].shape[-1]
     C = ops["scene"].shape[-1]
-    M = NK * H * W
-    gate_bytes = 1 if gate_type == "int8" else 2
+    HW, M = H * W, NK * H * W
+    w_bytes = 1 if gate_type == "int8" else 2
     n_ids = int(torch.unique(ops["prev_ids"]).numel())
-    read = (2 * M * D * 2 + M * C * 2                  # h, c, scene
-            + n_ids * H * W * E * gate_bytes           # table rows
-            + 9 * (E + D) * 4 * D * gate_bytes         # gate weights
-            + 4 * D * 4 * (2 if gate_type == "int8" else 1)   # b (, t_c)
-            + D * 9 * 2 + NK * 8)                      # readout w, ids
-    write = 2 * M * D * 2 + M * 4                      # h', c', logits
-    gate_ops = 2.0 * M * 9 * (E + D) * 4 * D
-    # nine-neighbour attention (edges + aggregation) and the readout
-    attn_ops = 2.0 * M * 9 * ((D + C) + D)
-    readout_ops = 2.0 * M * 9 * D
-    ops_s = (gate_ops / PEAK_OPS[gate_type] + attn_ops / PEAK_OPS[attn_type]
-             + readout_ops / PEAK_OPS["bf16"])
-    bytes_s = (read + write) / HBM_BYTES_S
-    return {"bound_ms": max(ops_s, bytes_s) * 1e3,
-            "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
+    gate_k = 9 * D if emb == "tables" else 9 * (E + D)
+    emb_bytes = {"table": n_ids * HW * E * w_bytes + NK * 8,   # + ids, parents
+                 "rows": M * E * 2,
+                 "tables": (HW + n_ids * 25) * 4 * D * 2 + NK * 4}[emb]
+    nbytes = (2 * M * D * 2 + M * C * 2 + emb_bytes
+              + gate_k * 4 * D * w_bytes + 4 * D * 4 * n_scales   # w, b
+              + D * 9 * 2                                  # readout w
+              + 2 * M * D * 2 + M * 4)                     # h', c', logits
+    work = {"bf16": 2.0 * M * 9 * D, "int8": 0.0}          # readout
+    work[gate_type] += 2.0 * M * gate_k * 4 * D
+    work[attn_type] += 2.0 * M * 9 * ((D + C) + D)
+    return roofline(nbytes, work)
 
 
 def launch_breakdown(what: str, fn, reps: int = 5) -> None:
@@ -315,6 +400,59 @@ def check_q8(what: str, quant, q8: dict, H: int, W: int, attn_q8: bool):
     return run, err, same
 
 
+def check_q8dyn(what: str, quant, q8: dict, H: int, W: int):
+    """K7 against its plain version on the same card tensors: h', c' and
+    logits within TOL; the attention and row-scale launches' h2_f and
+    r_p against the plain ones (see H2F_ATOL). Returns the step (to
+    time), its max abs err and the plain h2_f and r_p."""
+    def run(fn=decode_step_gathered_q8dyn):
+        return fn(quant, **q8, H=H, W=W)
+    out = run()
+    torch.cuda.synchronize()
+    err = check_close(what, out, run(decode_step_gathered_q8dyn_ref))
+    args = (q8["parent_rows"], q8["h"], q8["scene"], H, W)
+    h2_f, r_p = gate_inputs_q8dyn(*args)
+    ref_h2f, ref_rp = gate_inputs_q8dyn_ref(*args)
+    fl = h2f_weight_flips(*args, h2_f, ref_h2f, H2F_ATOL)
+    M, D = h2_f.shape
+    n = fl["rows"].numel()
+    explained = int(((fl["flips"] >= 1)
+                     & (fl["residual"] <= H2F_ATOL)).sum())
+    rp_exact = torch.equal(r_p, row_scales_q8dyn_ref(h2_f, H, W))
+    rp_rel = (r_p - ref_rp).abs() / ref_rp
+    print("kernel phase %s: h2_f max abs err %.3g; %d of %d pixels beyond "
+          "%.0e (at most %.0e of them), %d explained by whole bf16 steps "
+          "of their attention weights (weights flipped per pixel: %s; all "
+          "%d channels moved in %d; max residual %.3g); r_p the exact patch "
+          "max of h2_f: %s; r_p max rel err vs plain %.3g, within 1e-6 in "
+          "%.7f of rows"
+          % (what, float((h2_f - ref_h2f).abs().max()), n, M, H2F_ATOL,
+             FLIPPED_MAX, explained, torch.bincount(fl["flips"]).tolist(),
+             D, int((fl["moved"] == D).sum()),
+             float(fl["residual"].max()) if n else 0.0, rp_exact,
+             float(rp_rel.max()), float((rp_rel <= 1e-6).float().mean())))
+    if n > FLIPPED_MAX * M or explained != n or not rp_exact:
+        raise AssertionError(
+            f"{what}: the gate inputs disagree with the plain version's: "
+            f"{n} of {M} pixels of h2_f beyond {H2F_ATOL} (at most "
+            f"{FLIPPED_MAX} of them), {explained} explained by whole bf16 "
+            f"steps of attention weights; r_p the patch max of h2_f: "
+            f"{rp_exact}")
+    return run, err, ref_h2f, ref_rp
+
+
+def check_q8dyn_rows(params, cfg, dev, NK: int, identity: bool,
+                     what: str) -> None:
+    """K7 held against its plain version (``check_q8dyn``) at NK rows of
+    a decode: permuted parents (beam) or identity ones (greedy)."""
+    ops, _, H, W = kernel_operands(params, cfg, dev, NK, identity=identity)
+    quant = quantize_decode_weights_v2(
+        params["scales"]["0"]["dec_class"],
+        ops["emb_table"].reshape(H * W, H, W, -1))
+    q8 = {k: v for k, v in ops.items() if k not in ("cell_w", "emb_table")}
+    check_q8dyn("K7 at %s's %d rows" % (what, NK), quant, q8, H, W)
+
+
 def kernel_phase(model, cfg, dev) -> dict:
     ops, quant, H, W = kernel_operands(model, cfg, dev,
                                        NK=16 * cfg.beam_size)
@@ -325,38 +463,189 @@ def kernel_phase(model, cfg, dev) -> dict:
           % (NK, H, W, D, E, ops["scene"].shape[-1]))
     stats = {}
 
-    out = decode_step_gathered(**ops, H=H, W=W)
+    k1_out = decode_step_gathered(**ops, H=H, W=W)
     torch.cuda.synchronize()
-    err = check_close("K1", out, decode_step_gathered_ref(**ops, H=H, W=W))
-    ms = median_ms(lambda: decode_step_gathered(**ops, H=H, W=W), reps=30)
-    plain_ms = median_ms(lambda: decode_step_gathered_ref(**ops, H=H, W=W),
-                         reps=10)
+    stats["K1"] = dict(
+        max_abs_err=check_close("K1", k1_out,
+                                decode_step_gathered_ref(**ops, H=H, W=W)),
+        **timed("K1", lambda: decode_step_gathered(**ops, H=H, W=W),
+                lambda: decode_step_gathered_ref(**ops, H=H, W=W), reps=30,
+                plain_reps=10, roof=bound(ops, H, W, E, "bf16", "bf16")))
     # information only: cuDNN's bf16 conv2d of the gate product alone
     # (no attention, no gather, no LSTM) is not a call that computes K1
     x = torch.randn(NK, E + D, H, W, device=dev, dtype=torch.bfloat16)
     w = ops["cell_w"].reshape(3, 3, E + D, 4 * D).permute(3, 2, 0, 1) \
         .contiguous()
-    conv_ms = median_ms(
-        lambda: torch.nn.functional.conv2d(x, w, padding=1), reps=30)
-    stats["K1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=None, **bound(ops, H, W, E, "bf16", "bf16"))
-    print("kernel phase K1: kernel %.4f ms, plain %.4f ms, bound %.4f ms; "
-          "cuDNN bf16 conv2d of the gate product alone %.4f ms"
-          % (ms, plain_ms, stats["K1"]["bound_ms"], conv_ms))
-    launch_breakdown("K1", lambda: decode_step_gathered(**ops, H=H, W=W))
+    print("kernel phase K1: cuDNN bf16 conv2d of the gate product alone "
+          "%.4f ms" % median_ms(
+              lambda: torch.nn.functional.conv2d(x, w, padding=1), reps=30))
 
     q8 = {k: v for k, v in ops.items() if k not in ("cell_w", "emb_table")}
     for name, attn_q8 in (("K2", False), ("K3", True)):
         run, err, _ = check_q8(name, quant, q8, H, W, attn_q8)
-        ms = median_ms(run, reps=30)
-        plain_ms = median_ms(lambda: run(decode_step_gathered_q8_ref),
-                             reps=5)
-        stats[name] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-            **bound(ops, H, W, E, "int8", "int8" if attn_q8 else "bf16"))
-        print("kernel phase %s: kernel %.4f ms, plain %.4f ms, bound %.4f "
-              "ms" % (name, ms, plain_ms, stats[name]["bound_ms"]))
-        launch_breakdown(name, run)
+        stats[name] = dict(max_abs_err=err, **timed(
+            name, run, lambda: run(decode_step_gathered_q8_ref), reps=30,
+            plain_reps=5, roof=bound(ops, H, W, E, "int8",
+                                      "int8" if attn_q8 else "bf16",
+                                      n_scales=2)))
+
+    quant_dyn = quantize_decode_weights_v2(
+        model["scales"]["0"]["dec_class"],
+        ops["emb_table"].reshape(H * W, H, W, E))
+    stats["K7"] = q8dyn_kernel_phase(
+        quant_dyn, q8, H, W, bound(ops, H, W, E, "int8", "bf16", n_scales=3))
+    stats.update(k8_k9_kernel_phase(model, cfg, ops, k1_out, H, W))
+    stats["K6"] = cell_kernel_phase(model, cfg, dev)
+    return stats
+
+
+def timed(name: str, fn, ref, reps: int, plain_reps: int,
+          roof: dict) -> dict:
+    """Kernel and plain medians (CUDA events) beside the kernel's bound,
+    and the kernel's launch breakdown (profiler)."""
+    ms = median_ms(fn, reps=reps)
+    plain_ms = median_ms(ref, reps=plain_reps)
+    print("kernel phase %s: kernel %.4f ms, plain %.4f ms, bound %.4f ms "
+          "(%s)" % (name, ms, plain_ms, roof["bound_ms"], roof["bound_by"]))
+    launch_breakdown(name, fn)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, **roof)
+
+
+def bf16_steps(a, b):
+    """|a - b| in bf16 steps, elementwise, for two bf16 tensors."""
+    def ordered(x):
+        i = x.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def c_gate(what: str, got, want) -> bool:
+    """K7's gate-launch gate: bf16 c' equal to the plain gate's in at
+    least C_SAME_MIN of entries, none more than one bf16 step off.
+    Prints the margins; returns whether it passes."""
+    steps = bf16_steps(got, want)
+    same, worst = float((steps == 0).float().mean()), int(steps.max())
+    ok = same >= C_SAME_MIN and worst <= 1
+    print("kernel phase K7 gate launch, %s: c' equal in %.6f of entries "
+          "(at least %.3f), max %d bf16 steps (at most 1): %s"
+          % (what, same, C_SAME_MIN, worst, "passes" if ok else "rejected"))
+    return ok
+
+
+def q8dyn_kernel_phase(quant, q8: dict, H: int, W: int,
+                       k7_bound: dict) -> dict:
+    """K7 against its plain version at full width (``check_q8dyn``);
+    the gate launch on the plain version's own h2_f and r_p against the
+    plain gate (c' equal but for rounding), a gate that must reject two
+    planted faults."""
+    run, err, ref_h2f, ref_rp = check_q8dyn("K7", quant, q8, H, W)
+    gate = (quant, q8["cell_b"], q8["prev_ids"], q8["parent_rows"])
+    _, want = gate_lstm_q8dyn_ref(*gate, ref_h2f, ref_rp, q8["c"], H, W)
+    _, got = gate_lstm_q8dyn(*gate, ref_h2f, ref_rp, q8["c"], H, W)
+    torch.cuda.synchronize()
+    if not c_gate("kernel on the plain inputs", got, want):
+        raise AssertionError("K7's gate launch disagrees with the plain "
+                             "gate on the same inputs")
+    h2_b = ref_h2f.to(torch.bfloat16).float()
+    for what, (hf, rp) in (
+            ("planted fault: recurrent half at K2's static 127/2",
+             (ref_h2f, torch.full_like(ref_rp, 2.0))),
+            ("planted fault: h2_f rounded to bf16 before quantising",
+             (h2_b, row_scales_q8dyn_ref(h2_b, H, W)))):
+        _, fault = gate_lstm_q8dyn_ref(*gate, hf, rp, q8["c"], H, W)
+        if c_gate(what, fault, want):
+            raise AssertionError(f"K7's gate does not reject the {what}")
+    return dict(max_abs_err=err, **timed(
+        "K7", run, lambda: run(decode_step_gathered_q8dyn_ref), reps=30,
+        plain_reps=5, roof=k7_bound))
+
+
+def k8_k9_kernel_phase(model, cfg, ops, k1_out, H: int, W: int) -> dict:
+    """K8 on K1's rows gathered by hand (each row its own embedding row,
+    identity parents) and K9 on the same ids with the tables of the
+    model's own dec_class_emb and dec_class weights: each within TOL of
+    its plain version; K8 equal to K1 within 2e-2, K9 within 5e-2 of K8
+    (the JAX suite's tolerances for those comparisons)."""
+    HW, D = H * W, ops["h"].shape[-1]
+    E = ops["emb_table"].shape[-1]
+    par = ops["parent_rows"].long()
+    k8 = dict(cell_w=ops["cell_w"], cell_b=ops["cell_b"],
+              h2g_w=ops["h2g_w"], scene=ops["scene"],
+              emb=ops["emb_table"][ops["prev_ids"].long()].reshape(-1, E)
+              .contiguous(),
+              h=ops["h"].reshape(-1, HW, D)[par].reshape(-1, D).contiguous(),
+              c=ops["c"].reshape(-1, HW, D)[par].reshape(-1, D).contiguous())
+    out8 = decode_step(**k8, H=H, W=W)
+    torch.cuda.synchronize()
+    stats = {"K8": dict(max_abs_err=check_close(
+        "K8", out8, decode_step_ref(**k8, H=H, W=W)))}
+    check_close("K8 vs K1 (gathered by the kernel)", out8, k1_out)
+
+    sp = model["scales"]["0"]
+    t0 = time.perf_counter()
+    bg, dev = build_emb_gates_tables(sp["dec_class_emb"], sp["dec_class"],
+                                     H, W, get_activation(cfg.activation))
+    torch.cuda.synchronize()
+    print("kernel phase K9: tables [%d, %d, %d] + [%d, 25, %d] built in "
+          "%.3f s" % (H, W, 4 * D, HW, 4 * D, time.perf_counter() - t0))
+    bf = torch.bfloat16
+    k9 = dict(cell_b=ops["cell_b"], scene=ops["scene"], h=k8["h"],
+              c=k8["c"], ids=ops["prev_ids"], emb_bg=bg, emb_dev=dev,
+              cell_wh=sp["dec_class"]["kernel"][:, :, E:].to(bf)
+              .reshape(9 * D, 4 * D).contiguous(),
+              h2g_w=sp["h2g_class"]["w"].to(bf).reshape(9 * D, 1))
+    out9 = decode_step_v2(**k9, H=H, W=W)
+    torch.cuda.synchronize()
+    stats["K9"] = dict(max_abs_err=check_close(
+        "K9", out9, decode_step_v2_ref(**k9, H=H, W=W)))
+    errs = [float((a.float() - b.float()).abs().max())
+            for a, b in zip(out9, out8)]
+    print("kernel phase K9 vs K8: max abs diff h %.4g, c %.4g, logits %.4g "
+          "(at most 5e-2)" % tuple(errs))
+    if not max(errs) <= 5e-2:
+        raise AssertionError(f"K9 is {max(errs)} from K8 (at most 5e-2)")
+
+    for name, fn, ref, kw, emb in (
+            ("K8", decode_step, decode_step_ref, k8, "rows"),
+            ("K9", decode_step_v2, decode_step_v2_ref, k9, "tables")):
+        stats[name].update(timed(
+            name, lambda: fn(**kw, H=H, W=W), lambda: ref(**kw, H=H, W=W),
+            reps=30, plain_reps=10,
+            roof=bound(ops, H, W, E, "bf16", "bf16", emb=emb)))
+    return stats
+
+
+def cell_kernel_phase(model, cfg, dev, N: int = 20) -> dict:
+    """K6 at the training encoder's step (N = 20, 18x32, Cx =
+    scene_conv_dim = 64, D = 256, the model's enc_class weights): within
+    TOL of its plain version; timed beside the port's composed bf16
+    convlstm_step (cuDNN conv plus elementwise), which is information,
+    not a library yardstick: no single PyTorch call computes the cell."""
+    H, W = cfg.scene_grids[0]
+    D, Cx = cfg.enc_hidden_size, cfg.scene_conv_dim
+    params = model["scales"]["0"]["enc_class"]
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.rand(N, H, W, Cx, generator=g, device=dev)
+    st = ConvLSTMState(c=torch.randn(N, H, W, D, generator=g, device=dev),
+                       h=torch.tanh(torch.randn(N, H, W, D, generator=g,
+                                                device=dev)))
+    h, out = convlstm_step_fused(params, x, st)
+    torch.cuda.synchronize()
+    ref_h, ref = convlstm_step_fused_ref(params, x, st)
+    err = check_close("K6", (h, out.c), (ref_h, ref.c))
+    M = N * H * W
+    # x, h, c, weights and bias read; h', c' written
+    k6_bound = roofline(
+        M * Cx * 2 + 2 * M * D * 2 + 9 * (Cx + D) * 4 * D * 2 + 4 * D * 4
+        + 2 * M * D * 2, {"bf16": 2.0 * M * 9 * (Cx + D) * 4 * D})
+    stats = dict(max_abs_err=err, **timed(
+        "K6", lambda: convlstm_step_fused(params, x, st),
+        lambda: convlstm_step_fused_ref(params, x, st), reps=50,
+        plain_reps=20, roof=k6_bound))
+    print("kernel phase K6: N=%d, %dx%d, Cx=%d, D=%d; the port's composed "
+          "bf16 convlstm_step (cuDNN conv + elementwise) %.4f ms"
+          % (N, H, W, Cx, D, median_ms(lambda: convlstm_step(
+              params, x, st, compute_dtype=torch.bfloat16), reps=50)))
     return stats
 
 
@@ -392,59 +681,98 @@ def check_pickles(out, prob, inputs, cfg) -> None:
 def reset_launches() -> None:
     decode_step_gathered.launches = 0
     decode_step_gathered_q8.launches = {"int8": 0, "int8a": 0}
+    decode_step_gathered_q8dyn.launches = 0
     gnn_dense_fwd.launches = 0
     gnn_dense_bwd.launches = 0
 
 
-def offline_run(model, cfg, inputs, dev, tier: str) -> int:
+# the wrappers of the kernels that no path of the port runs, as in the JAX
+# package: their main-path launches are 0, and the kernel phases hold
+# them against their plain versions
+PATHLESS = {"K6": convlstm_step_fused, "K8": decode_step,
+            "K9": decode_step_v2}
+
+
+def tier_launches(tier: str) -> int:
+    """Launches of the decode step of a ``decode_quant`` tier."""
+    if tier == "none":
+        return decode_step_gathered.launches
+    if tier == "int8_dyn":
+        return decode_step_gathered_q8dyn.launches
+    return decode_step_gathered_q8.launches[tier]
+
+
+def check_greedy_trajs(out, inputs, cfg) -> None:
+    for n, tid in enumerate(inputs.traj_ids):
+        pts = np.asarray(out[tid], np.float32)
+        shape = (cfg.beam_size, int(inputs.pred_lengths[n]), 2)
+        if pts.shape != shape or not np.isfinite(pts).all() \
+                or not (pts == pts[:1]).all():
+            raise AssertionError(f"{tid}: greedy trajectories {pts.shape}")
+
+
+def offline_run(model, cfg, inputs, dev, tier: str,
+                greedy: bool = False) -> int:
     """One tier of the offline path: a counted first run whose pickles
-    are checked, then a timed second one. Returns the kernel launches
-    of the first run."""
+    are checked (greedy: the one future, ``--num_out`` times), then a
+    timed second one. Returns the kernel launches of the first run."""
     cfg = cfg.replace(decode_quant=tier)
+    what = tier + (" greedy" if greedy else "")
     batch_size = 16
     T = int(inputs.pred_lengths.max())
     n_batches = -(-len(inputs.traj_ids) // batch_size)
+
+    def run():
+        return inference.run_multifuture_inference(
+            model, inputs, cfg, batch_size=batch_size, need_prob=not greedy,
+            greedy=greedy, device=dev)
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out, prob = inference.run_multifuture_inference(
-        model, inputs, cfg, batch_size=batch_size, need_prob=True,
-        device=dev)
+    out, prob = run()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = (decode_step_gathered.launches if tier == "none"
-                else decode_step_gathered_q8.launches[tier])
+    launches = tier_launches(tier)
     print("offline %s: %d trajectories, %d batches, T=%d, %d kernel "
-          "launches, first run %.3f s" % (tier, len(inputs.traj_ids),
+          "launches, first run %.3f s" % (what, len(inputs.traj_ids),
                                           n_batches, T, launches, first_s))
     if launches != n_batches * T:
-        raise AssertionError(f"the {tier} decode ran {launches} kernel "
+        raise AssertionError(f"the {what} decode ran {launches} kernel "
                              f"steps, expected {n_batches} x {T}")
-    check_pickles(out, prob, inputs, cfg)
+    if greedy:
+        check_greedy_trajs(out, inputs, cfg)
+    else:
+        check_pickles(out, prob, inputs, cfg)
     t0 = time.perf_counter()
-    inference.run_multifuture_inference(
-        model, inputs, cfg, batch_size=batch_size, need_prob=True,
-        device=dev)
+    run()
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t0
-    print("offline %s: %.2f traj/s (second run, %.3f s, .traj.p and "
-          ".prob.p outputs)" % (tier, len(inputs.traj_ids) / steady_s,
-                                steady_s))
+    print("offline %s: %.2f traj/s (second run, %.3f s, %s)"
+          % (what, len(inputs.traj_ids) / steady_s, steady_s,
+             ".traj.p output" if greedy else ".traj.p and .prob.p outputs"))
     return launches
 
 
-def id_agreement(model, cfg, inputs, dev) -> None:
-    """Beam ids of batch 0 through the kernel and through the plain
-    version (information: bf16 near-ties flip ids)."""
+def id_agreement(model, cfg, inputs, dev, tier: str = "none",
+                 other: str = "plain") -> None:
+    """Beam ids of batch 0 in ``tier`` through its kernel against
+    ``other``: the plain version of the same tier, or another tier's
+    kernel (information: bf16 near-ties flip ids)."""
     batch_size = 16
     T = int(inputs.pred_lengths.max())
     batch = batch_to_device(
         inference.make_batch(inputs, np.arange(batch_size), cfg), dev)
     with torch.inference_mode():
-        beam_k, _ = inference.beam_forward(model, batch, cfg, T_pred=T)
-        with mock.patch.object(quant_ops, "decode_step_gathered",
-                               decode_step_gathered_ref):
-            beam_p, _ = inference.beam_forward(model, batch, cfg, T_pred=T)
+        beam_k, _ = inference.beam_forward(
+            model, batch, cfg.replace(decode_quant=tier), T_pred=T)
+        if other == "plain":
+            with mock.patch.object(quant_ops, "decode_step_gathered",
+                                   decode_step_gathered_ref):
+                beam_p, _ = inference.beam_forward(model, batch, cfg,
+                                                   T_pred=T)
+        else:
+            beam_p, _ = inference.beam_forward(
+                model, batch, cfg.replace(decode_quant=other), T_pred=T)
     lengths = batch.pred_length.cpu().numpy()
     ids_k, ids_p = beam_k.ids.cpu().numpy(), beam_p.ids.cpu().numpy()
     agree = np.mean(np.concatenate([
@@ -452,8 +780,10 @@ def id_agreement(model, cfg, inputs, dev) -> None:
         for n in range(batch_size)]))
     step0 = float((beam_k.logits[:, :, 0] - beam_p.logits[:, :, 0])
                   .abs().max())
-    print("offline none: beam ids of batch 0 agreeing with the plain "
-          "version: %.4f; step-0 logits max abs diff %.3g" % (agree, step0))
+    print("offline %s: beam ids of batch 0 agreeing with %s: %.4f; step-0 "
+          "logits max abs diff %.3g"
+          % (tier, "the plain version" if other == "plain"
+             else f"the {other} tier", agree, step0))
 
 
 # ------------------------------------------------------------------ serve
@@ -490,8 +820,9 @@ def direct_trajs(engine, cfg, obs, pred_len: int) -> np.ndarray:
 def serve_burst(engine, cfg, server, what: str, obs, pred_lens,
                 n_threads: int) -> int:
     """Sends every request from ``n_threads`` client threads over HTTP;
-    checks the responses and that every batch ran T int8a kernel steps.
-    Returns the int8a kernel launches of the burst."""
+    checks the responses and that every batch ran T kernel steps of the
+    engine's tier. Returns the tier's kernel launches of the burst."""
+    tier = cfg.decode_quant
     n_requests = len(obs)
     results = [None] * n_requests
     errors = []
@@ -517,7 +848,7 @@ def serve_burst(engine, cfg, server, what: str, obs, pred_lens,
         t.join()
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    launches = decode_step_gathered_q8.launches["int8a"]
+    launches = tier_launches(tier)
     stats = engine.stats.snapshot()
     if errors:
         raise errors[0]
@@ -530,7 +861,7 @@ def serve_burst(engine, cfg, server, what: str, obs, pred_lens,
                                  f"{r['trajs'].shape}, expected {shape}")
     if launches != stats["batches"] * engine.T_pred:
         raise AssertionError(
-            f"{what}: the int8a kernel ran {launches} steps for "
+            f"{what}: the {tier} kernel ran {launches} steps for "
             f"{stats['batches']} batches x T={engine.T_pred}")
     want = direct_trajs(engine, cfg, obs[0], int(pred_lens[0]))
     diff = float(np.abs(results[0]["trajs"] - want).max())
@@ -540,24 +871,30 @@ def serve_burst(engine, cfg, server, what: str, obs, pred_lens,
     print("serve %s: max_batch %d, T=%d, %d requests from %d threads in "
           "%.3f s: %.2f req/s; latency p50 %s ms, p99 %s ms, max %s ms "
           "(under 100 requests p99 is the max); %d batches, padding share "
-          "%.4f; %d int8a launches; served vs direct forward: max abs diff "
+          "%.4f; %d %s launches; served vs direct forward: max abs diff "
           "%.3g px"
           % (what, engine.max_batch, engine.T_pred, n_requests, n_threads,
              wall, n_requests / wall, stats.get("p50_latency_ms"),
              stats.get("p99_latency_ms"), stats["max_latency_ms"],
-             stats["batches"], padding, launches, diff))
+             stats["batches"], padding, launches, tier, diff))
     if not diff <= 1e-3:
         raise AssertionError(f"{what}: a served result differs from a "
                              f"direct forward by {diff} px")
     return launches
 
 
+SERVERS = (("asyncio", AsyncPredictionServer), ("threads", PredictionServer))
+
+
 def serve_phase(flags, dev, greedy: bool, n_requests: int,
-                n_threads: int = 4) -> int:
-    """Serve requests over HTTP through mvt-torch-serve's engine and
-    both of its front ends (asyncio, its default, then threads); returns
-    the int8a kernel launches of the traffic. Before the traffic, K3 is
-    held against its plain version at the rows the engine gives it."""
+                n_threads: int = 4, tier: str = "int8a",
+                servers=SERVERS) -> int:
+    """Serve requests over HTTP through mvt-torch-serve's engine and its
+    front ends (by default both: asyncio, its default, then threads);
+    returns the tier's kernel launches of the traffic. ``tier`` is the
+    tier the flags must select (int8a is the default on cuda). Before
+    the traffic, the tier's kernel (K3 or K7) is held against its plain
+    version at the rows the engine gives it."""
     argv = ["out", "model", "--random_init", "--port", "0", *flags] \
         + (["--greedy"] if greedy else [])
     args = serve.build_parser().parse_args(argv)
@@ -566,23 +903,29 @@ def serve_phase(flags, dev, greedy: bool, n_requests: int,
     args.max_batch = serve.resolve_max_batch(args.max_batch, args.greedy)
     cfg = serve.config_from_args(args).replace(
         use_beam_search=not greedy).validate()
-    if (cfg.compute_dtype, cfg.decode_quant) != ("bfloat16", "int8a"):
-        raise AssertionError("the serving tier on cuda must be bf16 + int8a")
+    if (cfg.compute_dtype, cfg.decode_quant) != ("bfloat16", tier):
+        raise AssertionError(f"the serving tier must be bf16 + {tier}, got "
+                             f"{cfg.compute_dtype} + {cfg.decode_quant}")
     engine = serve.ServingEngine(
         serve.load_model(args, cfg), cfg, max_batch=args.max_batch,
         max_delay_ms=args.max_delay_ms, device=dev)
-    what = "greedy" if greedy else "beam"
+    what = ("greedy" if greedy else "beam") + \
+        ("" if tier == "int8a" else f" {tier}")
     try:
         warm_s = engine.warmup()
         # greedy decodes one row per request with identity parents, beam
         # K rows per request with parents permuted
         NK = engine.max_batch * (1 if greedy else cfg.beam_size)
-        ops, quant, H, W = kernel_operands(engine._params, cfg, dev, NK,
-                                           identity=greedy)
-        q8 = {k: v for k, v in ops.items()
-              if k not in ("cell_w", "emb_table")}
-        check_q8("K3 at serve %s's %d rows" % (what, NK), quant, q8, H, W,
-                 attn_q8=True)
+        if tier == "int8a":
+            ops, quant, H, W = kernel_operands(engine._params, cfg, dev, NK,
+                                               identity=greedy)
+            q8 = {k: v for k, v in ops.items()
+                  if k not in ("cell_w", "emb_table")}
+            check_q8("K3 at serve %s's %d rows" % (what, NK), quant, q8, H,
+                     W, attn_q8=True)
+        else:
+            check_q8dyn_rows(engine._params, cfg, dev, NK, greedy,
+                             "serve " + what)
         print("serve %s: warm-up %.3f s" % (what, warm_s))
         rng = np.random.RandomState(3)
         obs = [np.stack([rng.uniform(0, cfg.video_w, cfg.obs_len),
@@ -591,8 +934,7 @@ def serve_phase(flags, dev, greedy: bool, n_requests: int,
                for _ in range(n_requests)]
         pred_lens = rng.randint(1, engine.T_pred + 1, n_requests)
         launches = 0
-        for backend, server_cls in (("asyncio", AsyncPredictionServer),
-                                    ("threads", PredictionServer)):
+        for backend, server_cls in servers:
             server = server_cls(engine, host=args.host, port=0)
             server.start_background()
             try:
@@ -987,23 +1329,45 @@ def main() -> int:
         obs_grid_target=[t[:16] for t in inputs.obs_grid_target],
         obs_scene=inputs.obs_scene[:16],
         pred_lengths=inputs.pred_lengths[:16])
+    stats.update(gnn_kernel_phase(model, cfg, dev))
+
+    # the paths: each resets its kernels' counts before it runs and reads
+    # them after; the pathless kernels' counts span all of them
+    for fn in PATHLESS.values():
+        fn.launches = 0
     launches = {"K1": offline_run(model, cfg, inputs, dev, "none")}
     id_agreement(model, cfg, inputs, dev)
     launches["K2"] = offline_run(model, cfg, first16, dev, "int8")
     launches["K3"] = offline_run(model, cfg, first16, dev, "int8a")
+    launches["K7"] = offline_run(model, cfg, first16, dev, "int8_dyn")
+    # the greedy decode gives K7 one row per trajectory, identity parents
+    check_q8dyn_rows(model, cfg, dev, len(first16.traj_ids), True,
+                     "offline greedy")
+    launches["K7"] += offline_run(model, cfg, first16, dev, "int8_dyn",
+                                  greedy=True)
+    id_agreement(model, cfg, first16, dev, "int8_dyn", other="int8")
     launches["K3"] += serve_phase(QUICKSTART_FLAGS, dev, greedy=False,
                                   n_requests=32)
     launches["K3"] += serve_phase(QUICKSTART_FLAGS, dev, greedy=True,
                                   n_requests=64)
-
-    stats.update(gnn_kernel_phase(model, cfg, dev))
+    launches["K7"] += serve_phase(
+        QUICKSTART_FLAGS + ["--compute_dtype", "bfloat16", "--decode_quant",
+                            "int8_dyn"], dev, greedy=False, n_requests=32,
+        tier="int8_dyn", servers=SERVERS[:1])
     trained = train_phase(dev)
     launches["K1"] += trained["K1"]
     launches["K4"], launches["K5"] = trained["K4"], trained["K5"]
+    for k, fn in PATHLESS.items():
+        launches[k] = fn.launches
+    print("main path launches of K6, K8, K9 (no path of the port or of the "
+          "JAX package runs them): %s" % {k: launches[k] for k in PATHLESS})
+    ran_not = [k for k in KERNELS if k not in PATHLESS and not launches[k]]
+    if ran_not:
+        raise AssertionError(f"kernels of the path never launched: {ran_not}")
 
     print(json.dumps({"kernels": [
         dict(KERNELS[k], launches=launches[k], **stats[k])
-        for k in ("K1", "K2", "K3", "K4", "K5")]}))
+        for k in sorted(KERNELS)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

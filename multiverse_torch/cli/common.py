@@ -98,8 +98,7 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
                         help="float32|bfloat16 conv/matmul compute")
     parser.add_argument("--decode_quant", default="none",
                         help="none|int8|int8a|int8_dyn: int8 tier of the "
-                             "fused decode step (with bfloat16); int8_dyn "
-                             "is not ported yet")
+                             "fused decode step (with bfloat16)")
     parser.add_argument("--beam_select", default="twostage",
                         choices=["twostage", "dense"],
                         help="beam successor selection: 'twostage' "

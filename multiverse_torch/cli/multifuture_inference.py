@@ -3,7 +3,7 @@ trajectories.
 
 Same flags and output pickles as ``mvt-multifuture-inference``
 (``--greedy`` decodes one future and writes it ``--num_out`` times;
-``--decode_quant int8|int8a`` runs the int8 tiers' kernels), with
+``--decode_quant int8|int8a|int8_dyn`` runs the int8 tiers' kernels), with
 two changes: weights come from ``--params_npz`` (a flat npz written by
 ``multiverse_torch.bridge.save_params_npz``) instead of an orbax
 checkpoint directory, and ``--device`` picks the device (default cuda).
@@ -70,8 +70,9 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["none", "int8", "int8a", "int8_dyn"],
                         help="int8 tier of the fused decode step (with "
                              "--compute_dtype bfloat16): 'int8' int8 gate "
-                             "product, 'int8a' int8 attention too; "
-                             "'int8_dyn' is not ported yet")
+                             "product, 'int8a' int8 attention too, "
+                             "'int8_dyn' two int8 gate products, the "
+                             "recurrent one at per-row dynamic scales")
     parser.add_argument("--beam_select", default="twostage",
                         choices=["twostage", "dense"])
     return parser
@@ -80,10 +81,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     prog = "mvt-torch-multifuture-inference"
-    if args.decode_quant == "int8_dyn":
-        raise SystemExit(f"{prog}: --decode_quant int8_dyn needs the "
-                         "dynamic-scale int8 kernel (K7), which is not "
-                         "ported yet; use int8 or int8a")
     if args.greedy and args.save_prob_file:
         # greedy has no beams, so the .prob.p contract cannot be produced
         raise SystemExit(f"{prog}: --save_prob_file requires beam search; "

@@ -127,10 +127,6 @@ def main(argv=None) -> None:
     if args.num_devices != 1:
         raise SystemExit(f"{PROG}: --num_devices {args.num_devices}: "
                          "serving across devices is not ported yet")
-    if args.decode_quant == "int8_dyn":
-        raise SystemExit(f"{PROG}: --decode_quant int8_dyn needs the "
-                         "dynamic-scale int8 kernel (K7), which is not "
-                         "ported yet; use int8 or int8a")
     args.compute_dtype, args.decode_quant = resolve_serving_dtypes(
         torch.device(args.device).type, args.compute_dtype,
         args.decode_quant)

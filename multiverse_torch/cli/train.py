@@ -17,7 +17,7 @@ and ``val_perf.json``. Differences:
 On the card with ``--compute_dtype bfloat16`` the class decoder's graph
 attention runs the hand-written kernels K4 (forward) and K5 (backward)
 at every decode step, and the periodic eval's class decode the fused
-decode step (K1, or K2/K3 under ``--decode_quant``).
+decode step (K1, or K2/K3/K7 under ``--decode_quant``).
 """
 
 from __future__ import annotations

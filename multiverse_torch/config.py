@@ -109,9 +109,9 @@ class MultiverseConfig:
     # "int8_dyn"), inference only, on top of bfloat16 compute: "int8"
     # runs the gate product int8 x int8 -> int32 with static activation
     # scales folded into the weights, "int8a" also the two attention
-    # products (all operands bounded by construction). "int8_dyn"
-    # (dynamic per-row scales) is accepted here, as in the JAX package,
-    # and refused by ops/quant.select_quant until its kernel is ported.
+    # products (all operands bounded by construction), "int8_dyn" two
+    # int8 gate products, the embedding half at static scales and the
+    # recurrent half at per-row dynamic scales (its 3x3 patch maximum).
     decode_quant: str = "none"
 
     # Per-step beam-successor selection: "twostage" (default), a

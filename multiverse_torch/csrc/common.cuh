@@ -1,5 +1,5 @@
 // Device helpers shared by the fused decode-step kernels
-// (fused_decode.cu: bf16, fused_decode_q8.cu: int8 and int8a).
+// (fused_decode.cu: bf16, fused_decode_q8.cu: int8, int8a, int8_dyn).
 
 #pragma once
 
@@ -20,6 +20,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 

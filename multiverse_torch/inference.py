@@ -117,7 +117,7 @@ def greedy_forward(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encoders + greedy class decode + greedy regression decode (the
     ``--greedy`` path). The class decode runs the fused decode step on
-    the bf16 GNN path (K1, or K2/K3 under ``cfg.decode_quant``).
+    the bf16 GNN path (K1, or K2/K3/K7 under ``cfg.decode_quant``).
     Returns (class logits [N, T, h, w, 1], reg [N, T, h, w, 2])."""
     cfg = cfg.replace(use_beam_search=False).validate()
     T = T_pred or cfg.pred_len

@@ -195,7 +195,7 @@ def greedy_decode(
     checkpoints each step, with the dropout masks drawn outside it.
 
     With ``allow_fused`` the bf16 argmax class decode with the GNN on
-    runs the fused decode step instead (K1, or K2/K3 under
+    runs the fused decode step instead (K1, or K2/K3/K7 under
     ``cfg.decode_quant``), as ``multiverse_tpu`` does: it carries the
     argmax cell id, looks its embedding up in a table of every cell's
     embedding, and passes identity parents."""

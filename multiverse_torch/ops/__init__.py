@@ -1,5 +1,6 @@
 """Layer library: conv, ConvLSTM, GNN, the fused decode-step kernels, the
-int8 tiers' operands and the training attention kernels."""
+int8 tiers' operands, the training attention kernels and the fused
+ConvLSTM cell kernel."""
 
 from multiverse_torch.ops.convlstm import (  # noqa: F401
     ConvLSTMState,
@@ -8,11 +9,22 @@ from multiverse_torch.ops.convlstm import (  # noqa: F401
     convlstm_scan,
     convlstm_step,
 )
+from multiverse_torch.ops.fused_cell import (  # noqa: F401
+    convlstm_step_fused,
+    convlstm_step_fused_ref,
+)
 from multiverse_torch.ops.fused_decode import (  # noqa: F401
+    build_emb_gates_tables,
+    decode_step,
     decode_step_gathered,
     decode_step_gathered_q8,
     decode_step_gathered_q8_ref,
+    decode_step_gathered_q8dyn,
+    decode_step_gathered_q8dyn_ref,
     decode_step_gathered_ref,
+    decode_step_ref,
+    decode_step_v2,
+    decode_step_v2_ref,
 )
 from multiverse_torch.ops.gnn import (  # noqa: F401
     gnn_neighbor_mask,
@@ -36,7 +48,9 @@ from multiverse_torch.ops.layers import (  # noqa: F401
 )
 from multiverse_torch.ops.quant import (  # noqa: F401
     DecodeQuant,
+    DecodeQuantDyn,
     make_decode_step,
     quantize_decode_weights,
+    quantize_decode_weights_v2,
     select_quant,
 )

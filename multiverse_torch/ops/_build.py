@@ -39,13 +39,16 @@ _I = ctypes.c_int
 # name -> argtypes of each C entry point (all return a cudaError_t)
 _SIGNATURES = {
     "mv_gnn_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "mv_gate_lstm": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    "mv_gate_lstm": [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P],
+    "mv_gate_lstm_tables": [_P] * 9 + [_I] * 4 + [ctypes.c_float, _P],
+    "mv_convlstm_cell": [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P],
     "mv_class_readout": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
     "mv_gnn_attention_h2q": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mv_gnn_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mv_gnn_attention_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "mv_gate_lstm_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    "mv_gate_lstm_q8": [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P],
+    "mv_patch_max": [_P, _P, _I, _I, _I, _P],
+    "mv_gate_lstm_q8dyn": [_P] * 13 + [_I] * 5 + [ctypes.c_float, _P],
     "mv_gnn_dense_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mv_gnn_dense_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

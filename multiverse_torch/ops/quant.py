@@ -1,8 +1,10 @@
 """Operands of the int8 decode tiers and the tier dispatch.
 
-Port of ``quantize_decode_weights`` and ``select_quant`` of
-``multiverse_tpu/ops/pallas_decode.py``. Every input of the gate
-product is bounded, so the quantisation is static:
+Port of ``quantize_decode_weights``, ``quantize_decode_weights_v2`` and
+``select_quant`` of ``multiverse_tpu/ops/pallas_decode.py``.
+
+"int8" and "int8a" (K2, K3): every input of the gate product is
+bounded, so the quantisation is static:
 
 * the previous-cell embedding rows come from a precomputed table,
   quantised once per decode with per-channel scales ``s_emb[e]``;
@@ -12,6 +14,12 @@ product is bounded, so the quantisation is static:
 and the per-input scales fold into the weights:
 gates[c] = sum_k x_q[k] * (s_k * w[k, c]) = t_c * sum_k x_q[k] w_q[k, c],
 with ``w_q`` int8 per output channel and ``t_c`` its f32 scale.
+
+"int8_dyn" (K7) splits the gate product into its embedding half (the
+same static table scales, folded into ``w_eq`` and ``t_e``) and its
+recurrent half (``w_hq`` per output channel with scale ``u_c``), whose
+activations the kernel quantises per output row by the row's own 3x3
+patch maximum.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 from multiverse_torch.ops.fused_decode import (
     decode_step_gathered,
     decode_step_gathered_q8,
+    decode_step_gathered_q8dyn,
 )
 
 
@@ -40,6 +49,38 @@ class DecodeQuant(NamedTuple):
     w_qt: torch.Tensor
 
 
+class DecodeQuantDyn(NamedTuple):
+    """The int8 operands of one "int8_dyn" decode (the JAX package's
+    5-tuple of ``quantize_decode_weights_v2``, in its layouts)."""
+
+    emb_q: torch.Tensor    # [HW, H, W, E] int8, as DecodeQuant's
+    w_eq: torch.Tensor     # [9*E, 4D] int8, shift-major embedding rows
+    t_e: torch.Tensor      # [1, 4D] f32
+    w_hq: torch.Tensor     # [9*D, 4D] int8, shift-major recurrent rows
+    u_c: torch.Tensor      # [1, 4D] f32
+    # w_eq and w_hq transposed to [4D, 9*E] and [4D, 9*D], contiguous,
+    # the operand layout of the int8 MMA (as DecodeQuant.w_qt)
+    w_eqt: torch.Tensor
+    w_hqt: torch.Tensor
+
+
+def _quantize_table(emb_table: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(s_emb [E] per-channel scales, emb_q int8) of an embedding
+    table."""
+    emb = emb_table.float()
+    s_emb = torch.clamp_min(torch.amax(emb.abs(), dim=(0, 1, 2)),
+                            1e-6) / 127.0
+    emb_q = torch.clamp(torch.round(emb / s_emb), -127, 127).to(torch.int8)
+    return s_emb, emb_q
+
+
+def _quantize_columns(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int8 w, its f32 per-column scale): w = scale * w_q."""
+    scale = torch.clamp_min(torch.amax(w.abs(), dim=0), 1e-12) / 127.0
+    return torch.round(w / scale[None, :]).to(torch.int8), scale
+
+
 def quantize_decode_weights(cell_params: Mapping[str, torch.Tensor],
                             emb_table: torch.Tensor) -> DecodeQuant:
     """Precompute the int8 decode operands (once per decode: it holds a
@@ -52,34 +93,49 @@ def quantize_decode_weights(cell_params: Mapping[str, torch.Tensor],
     Cin, D4 = kern.shape[2], kern.shape[3]
     kern = kern.reshape(9 * Cin, D4)
 
-    emb = emb_table.float()
-    s_emb = torch.clamp_min(torch.amax(emb.abs(), dim=(0, 1, 2)),
-                            1e-6) / 127.0                      # [E]
+    s_emb, emb_q = _quantize_table(emb_table)
     s_h = torch.full((Cin - E,), 2.0 / 127.0, dtype=torch.float32,
                      device=kern.device)
     s_k9 = torch.cat([s_emb, s_h]).repeat(9)                   # [9*Cin]
-
-    w_eff = kern * s_k9[:, None]
-    t_c = torch.clamp_min(torch.amax(w_eff.abs(), dim=0), 1e-12) / 127.0
-    w_q = torch.round(w_eff / t_c[None, :]).to(torch.int8)
-    emb_q = torch.clamp(torch.round(emb / s_emb), -127, 127).to(torch.int8)
+    w_q, t_c = _quantize_columns(kern * s_k9[:, None])
     return DecodeQuant(emb_q=emb_q, w_q=w_q, t_c=t_c.reshape(1, D4),
                        w_qt=w_q.t().contiguous())
 
 
+def quantize_decode_weights_v2(cell_params: Mapping[str, torch.Tensor],
+                               emb_table: torch.Tensor) -> DecodeQuantDyn:
+    """The "int8_dyn" operands: the gate kernel split into its embedding
+    rows (scaled by the table's static ``s_emb``) and its recurrent rows,
+    each quantised per output column. Both are shift-major slices of
+    ``kernel.reshape(9, Cin, 4D)``, so ``w_eq`` is not a slice of
+    :func:`quantize_decode_weights`' ``w_q``."""
+    E = emb_table.shape[-1]
+    kern = cell_params["kernel"].float()
+    Cin, D4 = kern.shape[2], kern.shape[3]
+    D = Cin - E
+    s_emb, emb_q = _quantize_table(emb_table)
+    k9 = kern.reshape(9, Cin, D4)
+    w_eq, t_e = _quantize_columns(
+        (k9[:, :E, :] * s_emb[None, :, None]).reshape(9 * E, D4))
+    w_hq, u_c = _quantize_columns(k9[:, E:, :].reshape(9 * D, D4))
+    return DecodeQuantDyn(emb_q=emb_q, w_eq=w_eq, t_e=t_e.reshape(1, D4),
+                          w_hq=w_hq, u_c=u_c.reshape(1, D4),
+                          w_eqt=w_eq.t().contiguous(),
+                          w_hqt=w_hq.t().contiguous())
+
+
 def select_quant(decode_quant: str, cell_params: Mapping[str, torch.Tensor],
-                 emb_table: torch.Tensor) -> Tuple[DecodeQuant, Callable]:
+                 emb_table: torch.Tensor) -> Tuple[NamedTuple, Callable]:
     """(quantised operands, step function) for a ``cfg.decode_quant``
     value (bound into a step by :func:`make_decode_step`). "int8" steps
     through K2, "int8a" through K3
     (:func:`~multiverse_torch.ops.fused_decode.decode_step_gathered_q8`
-    with ``attn_q8``)."""
+    with ``attn_q8``), "int8_dyn" through K7
+    (:func:`~multiverse_torch.ops.fused_decode.decode_step_gathered_q8dyn`
+    on :func:`quantize_decode_weights_v2`'s operands)."""
     if decode_quant == "int8_dyn":
-        raise NotImplementedError(
-            "decode_quant='int8_dyn' needs the dynamic-scale int8 kernel "
-            "(K7, multiverse_tpu/ops/pallas_decode.py:760 "
-            "decode_step_pallas_gathered_q8v2), which is not ported yet; "
-            "use 'int8' or 'int8a'")
+        return (quantize_decode_weights_v2(cell_params, emb_table),
+                decode_step_gathered_q8dyn)
     if decode_quant not in ("int8", "int8a"):
         raise ValueError(f"no int8 decode mode named {decode_quant!r}")
     quant = quantize_decode_weights(cell_params, emb_table)
@@ -93,9 +149,9 @@ def make_decode_step(decode_quant: str,
     """The fused decode step of a tier, its operands prepared once per
     decode: ``step(cell_b, h2g_w, prev_ids, parent_rows, h, c, scene, H,
     W) -> (h', c', logits)``. "none" binds K1's bf16 gate weights and
-    embedding rows to :func:`decode_step_gathered`; "int8" and "int8a"
-    bind :func:`select_quant`'s operands to K2 or K3. The one dispatch
-    point of the beam and greedy decoders."""
+    embedding rows to :func:`decode_step_gathered`; "int8", "int8a" and
+    "int8_dyn" bind :func:`select_quant`'s operands to K2, K3 or K7. The
+    one dispatch point of the beam and greedy decoders."""
     if decode_quant == "none":
         bf = torch.bfloat16
         D4 = cell_params["kernel"].shape[-1]

@@ -1,9 +1,16 @@
 """The CUDA kernels on the card, against their plain PyTorch versions on
-the same inputs: the fused decode step's K1 (bf16), K2 and K3 (the int8
-and int8a tiers), max abs error 2e-2, the tolerance of the JAX
-package's own kernel tests; the training attention's K4 (forward) and
-K5 (backward), max abs error 2e-2 x max |plain| (K4 also 2e-2), and
-the decodes that must run them. A CUDA kernel has no CPU mode, so without a
+the same inputs: the fused decode step's K1 (bf16), K2, K3 and K7 (the
+int8, int8a and int8_dyn tiers), K8 (no gather) and K9 (embedding gates
+from tables), and the ConvLSTM cell K6, max abs error 2e-2, the
+tolerance of the JAX package's own kernel tests; K7's h2_f within 1e-5
+of the plain one but at pixels (at most 0.001 of them) whose difference
+is whole bf16 steps of their attention weights, its r_p the exact patch
+max of that h2_f, and its gate launch on the plain version's own
+inputs, bf16 c' equal in at least 0.999 of entries and none more than
+one bf16 step off, a gate shown to reject
+two planted faults; the training attention's K4 (forward) and K5
+(backward), max abs error 2e-2 x max |plain| (K4 also 2e-2), and the
+decodes that must run them. A CUDA kernel has no CPU mode, so without a
 GPU every test here skips.
 
 This file imports neither jax nor tests/conftest.py's fixtures, so it
@@ -21,13 +28,35 @@ from multiverse_torch import inference
 from multiverse_torch.data import dataset
 from multiverse_torch.models import Multiverse
 from multiverse_torch.ops import (
+    ConvLSTMState,
+    build_emb_gates_tables,
+    conv2d,
+    convlstm_step_fused,
+    convlstm_step_fused_ref,
+    decode_step,
     decode_step_gathered,
     decode_step_gathered_q8,
     decode_step_gathered_q8_ref,
+    decode_step_gathered_q8dyn,
+    decode_step_gathered_q8dyn_ref,
     decode_step_gathered_ref,
+    decode_step_ref,
+    decode_step_v2,
+    decode_step_v2_ref,
+    get_activation,
     quantize_decode_weights,
+    quantize_decode_weights_v2,
 )
-from multiverse_torch.ops.fused_decode import gate_input_q8, gate_input_q8_ref
+from multiverse_torch.ops.fused_decode import (
+    gate_input_q8,
+    gate_input_q8_ref,
+    gate_inputs_q8dyn,
+    gate_inputs_q8dyn_ref,
+    gate_lstm_q8dyn,
+    gate_lstm_q8dyn_ref,
+    h2f_weight_flips,
+    row_scales_q8dyn_ref,
+)
 from multiverse_torch.ops.fused_gnn import (
     gnn_dense_bwd,
     gnn_dense_bwd_ref,
@@ -178,7 +207,8 @@ def test_q8_kernel_rejects_operands_it_does_not_take(cuda):
     assert decode_step_gathered_q8.launches == before
 
 
-@pytest.mark.parametrize("decode_quant", ["none", "int8", "int8a"])
+@pytest.mark.parametrize("decode_quant", ["none", "int8", "int8a",
+                                          "int8_dyn"])
 def test_greedy_slice_on_the_card_tracks_the_cpu(cuda, decode_quant):
     cfg = MultiverseConfig(
         scene_h=12, scene_w=16, scene_class=5, video_h=540, video_w=960,
@@ -190,7 +220,8 @@ def test_greedy_slice_on_the_card_tracks_the_cpu(cuda, decode_quant):
                                                      max_pred_len=14)
     batch = inference.make_batch(inputs, np.arange(5), cfg)
     before = (decode_step_gathered.launches,
-              dict(decode_step_gathered_q8.launches))
+              dict(decode_step_gathered_q8.launches),
+              decode_step_gathered_q8dyn.launches)
     with torch.inference_mode():
         on_card, _ = inference.greedy_forward(
             model.to(cuda), dataset.batch_to_device(batch, cuda), cfg,
@@ -198,6 +229,8 @@ def test_greedy_slice_on_the_card_tracks_the_cpu(cuda, decode_quant):
         torch.cuda.synchronize()
         if decode_quant == "none":
             assert decode_step_gathered.launches == before[0] + 10
+        elif decode_quant == "int8_dyn":
+            assert decode_step_gathered_q8dyn.launches == before[2] + 10
         else:
             assert decode_step_gathered_q8.launches[decode_quant] \
                 == before[1][decode_quant] + 10
@@ -331,3 +364,205 @@ def test_composed_beam_decode_runs_k4(cuda):
         torch.cuda.synchronize()
     assert gnn_dense_fwd.launches == before + 12
     assert torch.isfinite(beam.logprobs).all()
+
+
+# ------------------------------------------------------- K7, K8, K9, K6
+
+def _err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _check_outputs(out, ref):
+    for name, a, b in zip(("h", "c", "logits"), out, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _err(a, b) <= TOL, (name, _err(a, b))
+
+
+def bf16_ulps(a, b):
+    """|a - b| in bf16 steps, elementwise, for two bf16 tensors."""
+    def ordered(x):
+        i = x.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def c_agreement(got, want):
+    """(share of bf16 c' entries equal, max bf16 steps apart)."""
+    ulps = bf16_ulps(got, want)
+    return float((ulps == 0).float().mean()), int(ulps.max())
+
+
+def _q8dyn_operands(NK, H, W, D, E, C, device, seed=0):
+    ops = {k: None if v is None else v.to(device)
+           for k, v in _operands(NK, H, W, D, E, C, seed).items()}
+    kernel = ops.pop("cell_w").float().reshape(3, 3, E + D, 4 * D)
+    emb = ops.pop("emb_table").float().reshape(H * W, H, W, E)
+    return quantize_decode_weights_v2({"kernel": kernel}, emb), ops
+
+
+@pytest.mark.parametrize("NK,H,W,D,E,C", [
+    (6, 6, 8, 64, 16, 4),        # M = 288: a ragged last tile
+    (5, 7, 9, 32, 16, 0),        # odd grid, no scene features
+    (40, 18, 32, 256, 32, 64),   # the beam decode's widths: 9E = 288
+])
+def test_q8dyn_kernel_matches_plain_version(cuda, NK, H, W, D, E, C):
+    quant, ops = _q8dyn_operands(NK, H, W, D, E, C, cuda)
+    before = decode_step_gathered_q8dyn.launches
+    out = decode_step_gathered_q8dyn(quant, **ops, H=H, W=W)
+    torch.cuda.synchronize()
+    assert decode_step_gathered_q8dyn.launches == before + 1
+    _check_outputs(out, decode_step_gathered_q8dyn_ref(quant, **ops, H=H,
+                                                       W=W))
+    args = (ops["parent_rows"], ops["h"], ops["scene"], H, W)
+    h2_f, r_p = gate_inputs_q8dyn(*args)
+    ref_h2f, ref_rp = gate_inputs_q8dyn_ref(*args)
+    assert h2_f.dtype == r_p.dtype == torch.float32
+    # summed in another order, an attention weight's bf16 rounding may
+    # flip by one step: every pixel beyond 1e-5 must be explained so
+    fl = h2f_weight_flips(*args, h2_f, ref_h2f, 1e-5)
+    assert fl["rows"].numel() <= 1e-3 * h2_f.shape[0], fl["rows"].numel()
+    assert bool((fl["flips"] >= 1).all()), fl
+    assert bool((fl["residual"] <= 1e-5).all()), fl
+    torch.testing.assert_close(r_p, row_scales_q8dyn_ref(h2_f, H, W),
+                               rtol=0, atol=0)
+    # the gate launch alone, on the plain version's own inputs
+    gate = (quant, ops["cell_b"], ops["prev_ids"], ops["parent_rows"])
+    h_k, c_k = gate_lstm_q8dyn(*gate, ref_h2f, ref_rp, ops["c"], H, W)
+    h_p, c_p = gate_lstm_q8dyn_ref(*gate, ref_h2f, ref_rp, ops["c"], H, W)
+    same, worst = c_agreement(c_k, c_p)
+    assert same >= 0.999 and worst <= 1, (same, worst)
+
+
+def test_q8dyn_gate_rejects_planted_faults(cuda):
+    """The gate-launch gate (c' equal in >= 0.999 of entries, none more
+    than one bf16 step off) rejects a recurrent half quantised at K2's
+    static 127/2 and h2_f rounded to bf16 before quantising."""
+    H, W = 18, 32
+    quant, ops = _q8dyn_operands(40, H, W, 256, 32, 64, cuda)
+    h2_f, r_p = gate_inputs_q8dyn_ref(ops["parent_rows"], ops["h"],
+                                      ops["scene"], H, W)
+    gate = (quant, ops["cell_b"], ops["prev_ids"], ops["parent_rows"])
+    _, want = gate_lstm_q8dyn_ref(*gate, h2_f, r_p, ops["c"], H, W)
+    h2_b = h2_f.to(torch.bfloat16).float()
+    for what, (hf, rp) in (
+            ("static 127/2", (h2_f, torch.full_like(r_p, 2.0))),
+            ("bf16 h2_f", (h2_b, row_scales_q8dyn_ref(h2_b, H, W)))):
+        _, got = gate_lstm_q8dyn_ref(*gate, hf, rp, ops["c"], H, W)
+        same, worst = c_agreement(got, want)
+        assert same < 0.999 or worst > 1, (what, same, worst)
+
+
+@pytest.mark.parametrize("NK,H,W,D,E,C", [
+    (6, 6, 8, 64, 16, 4),
+    (5, 7, 9, 32, 8, 0),
+    (40, 18, 32, 256, 32, 64),
+])
+def test_k8_kernel_matches_plain_version_and_k1(cuda, NK, H, W, D, E, C):
+    ops = {k: None if v is None else v.to(cuda)
+           for k, v in _operands(NK, H, W, D, E, C).items()}
+    HW = H * W
+    par = ops["parent_rows"].long()
+    k8 = dict(cell_w=ops["cell_w"], cell_b=ops["cell_b"],
+              h2g_w=ops["h2g_w"], scene=ops["scene"],
+              emb=ops["emb_table"][ops["prev_ids"].long()].reshape(-1, E)
+              .contiguous(),
+              h=ops["h"].reshape(NK, HW, D)[par].reshape(-1, D).contiguous(),
+              c=ops["c"].reshape(NK, HW, D)[par].reshape(-1, D).contiguous())
+    before = decode_step.launches
+    out = decode_step(**k8, H=H, W=W)
+    torch.cuda.synchronize()
+    assert decode_step.launches == before + 1
+    _check_outputs(out, decode_step_ref(**k8, H=H, W=W))
+    _check_outputs(out, decode_step_gathered(**ops, H=H, W=W))
+
+
+def _k9_case(NK, H, W, D, E, C, device):
+    g = torch.Generator().manual_seed(5)
+    ops = {k: None if v is None else v.to(device)
+           for k, v in _operands(NK, H, W, D, E, C).items()}
+    ep = {"w": (torch.randn(3, 3, 1, E, generator=g) * 0.8).to(device),
+          "b": (torch.randn(E, generator=g) * 0.3).to(device)}
+    act = get_activation("tanh")
+    HW = H * W
+    table = conv2d(ep, torch.eye(HW, device=device).reshape(HW, H, W, 1),
+                   activation=act, compute_dtype=torch.bfloat16)
+    kernel = ops["cell_w"].float().reshape(3, 3, E + D, 4 * D)
+    bg, dev = build_emb_gates_tables(ep, {"kernel": kernel}, H, W, act)
+    ids = ops["prev_ids"]
+    k8 = dict(cell_w=ops["cell_w"], cell_b=ops["cell_b"],
+              h2g_w=ops["h2g_w"], scene=ops["scene"], h=ops["h"],
+              c=ops["c"], emb=table.to(torch.bfloat16)[ids.long()]
+              .reshape(-1, E).contiguous())
+    k9 = dict(cell_b=ops["cell_b"], scene=ops["scene"], h=ops["h"],
+              c=ops["c"], ids=ids, emb_bg=bg, emb_dev=dev,
+              cell_wh=kernel[:, :, E:].reshape(9 * D, 4 * D)
+              .to(torch.bfloat16).contiguous(),
+              h2g_w=ops["h2g_w"].t().reshape(9 * D, 1).contiguous())
+    return k8, k9
+
+
+@pytest.mark.parametrize("NK,H,W,D,E,C", [
+    (6, 6, 8, 64, 16, 4),
+    (40, 18, 32, 256, 32, 64),
+])
+def test_k9_kernel_matches_plain_version_and_tracks_k8(cuda, NK, H, W, D, E,
+                                                        C):
+    k8, k9 = _k9_case(NK, H, W, D, E, C, cuda)
+    before = decode_step_v2.launches
+    out = decode_step_v2(**k9, H=H, W=W)
+    torch.cuda.synchronize()
+    assert decode_step_v2.launches == before + 1
+    _check_outputs(out, decode_step_v2_ref(**k9, H=H, W=W))
+    for a, b in zip(out, decode_step(**k8, H=H, W=W)):
+        assert _err(a, b) <= 5e-2
+
+
+@pytest.mark.parametrize("N,H,W,Cx,D", [
+    (3, 6, 8, 8, 32),            # small, Cx = 8
+    (2, 7, 9, 16, 64),           # odd grid
+    (20, 18, 32, 64, 256),       # the training encoder's step
+])
+def test_cell_kernel_matches_plain_version(cuda, N, H, W, Cx, D):
+    g = torch.Generator().manual_seed(2)
+    params = {"kernel": (torch.randn(3, 3, Cx + D, 4 * D, generator=g)
+                         * (2.0 / (9 * (Cx + 5 * D))) ** 0.5).to(cuda),
+              "bias": (torch.randn(4 * D, generator=g) * 0.1).to(cuda)}
+    x = torch.randn(N, H, W, Cx, generator=g).to(cuda)
+    st = ConvLSTMState(c=torch.randn(N, H, W, D, generator=g).to(cuda),
+                       h=torch.tanh(torch.randn(N, H, W, D, generator=g))
+                       .to(cuda))
+    before = convlstm_step_fused.launches
+    h, out = convlstm_step_fused(params, x, st)
+    torch.cuda.synchronize()
+    assert convlstm_step_fused.launches == before + 1
+    ref_h, ref = convlstm_step_fused_ref(params, x, st)
+    for a, b in ((h, ref_h), (out.c, ref.c)):
+        assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
+        assert _err(a, b) <= TOL
+    with pytest.raises(ValueError, match="Cx=4"):
+        convlstm_step_fused(
+            {"kernel": params["kernel"][:, :, Cx - 4:], "bias":
+             params["bias"]}, x[..., :4].contiguous(), st)
+    assert convlstm_step_fused.launches == before + 1
+
+
+def test_new_kernels_reject_operands_they_do_not_take(cuda):
+    quant, ops = _q8dyn_operands(4, 6, 8, 32, 16, 4, cuda)
+    before = decode_step_gathered_q8dyn.launches
+    with pytest.raises(ValueError, match="w_hqt"):
+        decode_step_gathered_q8dyn(quant._replace(w_hqt=quant.w_hq), **ops,
+                                   H=6, W=8)
+    with pytest.raises(ValueError, match="parent_rows"):
+        decode_step_gathered_q8dyn(
+            quant, **dict(ops, parent_rows=ops["parent_rows"].long()),
+            H=6, W=8)
+    assert decode_step_gathered_q8dyn.launches == before
+    k8, k9 = _k9_case(4, 6, 8, 32, 8, 4, cuda)
+    before = (decode_step.launches, decode_step_v2.launches)
+    with pytest.raises(ValueError, match="emb"):
+        decode_step(**dict(k8, emb=k8["emb"].float()), H=6, W=8)
+    with pytest.raises(ValueError, match="emb_dev"):
+        decode_step_v2(**dict(k9, emb_dev=k9["emb_dev"][:-1]), H=6, W=8)
+    with pytest.raises(ValueError, match="ids"):
+        decode_step_v2(**dict(k9, ids=k9["ids"].long()), H=6, W=8)
+    assert (decode_step.launches, decode_step_v2.launches) == before

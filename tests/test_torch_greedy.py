@@ -94,7 +94,8 @@ def test_reconstruct_greedy_trajs_matches_jax(rng, center_only):
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("decode_quant", ["none", "int8", "int8a"])
+@pytest.mark.parametrize("decode_quant", ["none", "int8", "int8a",
+                                          "int8_dyn"])
 def test_fused_greedy_decode_tracks_jax_interpret(rng, monkeypatch,
                                                   decode_quant):
     """bf16 argmax class decode with the GNN on, both packages through
@@ -130,13 +131,15 @@ def test_fused_greedy_decode_tracks_jax_interpret(rng, monkeypatch,
 
     counting("decode_step_gathered")
     counting("decode_step_gathered_q8")
+    counting("decode_step_gathered_q8dyn")
     tl, ts = tmv.greedy_decode(
         model["scales"]["0"], cfg, torch.from_numpy(first),
         TState(c=torch.from_numpy(c), h=torch.from_numpy(h)), 5, *names,
         use_gnn=True, scene_mean=torch.from_numpy(scene),
         compute_dtype=torch.bfloat16, allow_fused=True)
-    assert calls == (["decode_step_gathered"] * 5 if decode_quant == "none"
-                     else ["decode_step_gathered_q8"] * 5)
+    assert calls == [{"none": "decode_step_gathered",
+                      "int8_dyn": "decode_step_gathered_q8dyn"}.get(
+                          decode_quant, "decode_step_gathered_q8")] * 5
     assert tl.dtype == torch.float32 and ts.dtype == torch.bfloat16
     np.testing.assert_allclose(np.asarray(jl), tl.numpy(), rtol=2e-2,
                                atol=2e-2)
@@ -181,7 +184,8 @@ def test_cli_greedy_and_int8a(tmp_path):
             "--enc_hidden_size", "16", "--dec_hidden_size", "16",
             "--scene_conv_dim", "8"]
     for extra in (["--greedy", "--decode_quant", "int8a"],
-                  ["--decode_quant", "int8"]):
+                  ["--decode_quant", "int8"],
+                  ["--greedy", "--decode_quant", "int8_dyn"]):
         tcli.main(args + extra)
         with open(out, "rb") as f:
             trajs = pickle.load(f)

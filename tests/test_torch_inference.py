@@ -234,10 +234,20 @@ def test_cli_writes_both_pickles_and_rejects_unported_modes(tmp_path,
     for tid, beams in trajs.items():
         assert np.asarray(beams).shape[:1] == (4,)
         assert probs[tid][0].shape[:2] == (1, 4)
-    # the dynamic-scale tier's kernel (K7) is not ported; greedy decode
-    # has no beams for the .prob.p output
-    with pytest.raises(SystemExit, match="not ported"):
-        tcli.main(args + ["--decode_quant", "int8_dyn"])
+    # the dynamic-scale tier (K7) writes both pickles too
+    os.remove(out)
+    os.remove(prob)
+    tcli.main(args + ["--decode_quant", "int8_dyn"])
+    with open(out, "rb") as f:
+        dyn_trajs = pickle.load(f)
+    with open(prob, "rb") as f:
+        dyn_probs = pickle.load(f)
+    assert set(dyn_trajs) == set(trajs) and set(dyn_probs) == set(trajs)
+    for tid, beams in dyn_trajs.items():
+        assert np.asarray(beams).shape == np.asarray(trajs[tid]).shape
+        assert np.isfinite(np.asarray(beams)).all()
+        assert dyn_probs[tid][0].shape == probs[tid][0].shape
+    # greedy decode has no beams for the .prob.p output
     with pytest.raises(SystemExit, match="requires beam search"):
         tcli.main(args + ["--greedy"])
     with pytest.raises(ValueError, match="do not match"):
@@ -259,9 +269,9 @@ def test_cuda_request_raises_without_cuda():
 
 def test_port_never_imports_jax():
     """With jax and the JAX package made unimportable, every module of
-    the port and chip_smoke.py import, the beam, greedy and int8a paths
-    run on the CPU, and so does one bf16 train step through
-    mvt-torch-train's own pieces."""
+    the port and chip_smoke.py import, the beam, greedy, int8a and
+    int8_dyn (beam and greedy) paths run on the CPU, and so does one
+    bf16 train step through mvt-torch-train's own pieces."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for name in ('jax', 'jaxlib', 'multiverse_tpu'):\n"
@@ -281,7 +291,8 @@ def test_port_never_imports_jax():
         "inp = inference.synthesize_multifuture_inputs(cfg, 3, seed=0,\n"
         "                                              max_pred_len=13)\n"
         "for quant, greedy in (('none', False), ('int8a', False),\n"
-        "                      ('int8', True)):\n"
+        "                      ('int8', True), ('int8_dyn', False),\n"
+        "                      ('int8_dyn', True)):\n"
         "    out, prob = inference.run_multifuture_inference(\n"
         "        Multiverse.init(cfg), inp, cfg.replace(decode_quant=quant),\n"
         "        batch_size=2, greedy=greedy, device='cpu')\n"

@@ -307,12 +307,55 @@ def test_serving_dtype_resolution_flag_spellings():
     (["--random_init", "--reload_poll_s", "5"], "orbax"),
     ([], "orbax"),
     (["--random_init", "--num_devices", "4"], "--num_devices 4"),
-    (["--random_init", "--compute_dtype", "bfloat16", "--decode_quant",
-      "int8_dyn"], "K7"),
 ])
 def test_serve_cli_refuses_what_is_not_ported(extra, match):
     with pytest.raises(SystemExit, match=match):
         tserve.main(["out", "model", "--device", "cpu", *extra])
+
+
+def test_serve_cli_answers_in_the_int8_dyn_tier(rng, monkeypatch):
+    """``mvt-torch-serve --decode_quant int8_dyn`` serves: the CLI's own
+    main builds the engine in bf16 + int8_dyn, and one request sent to
+    its asyncio front end is answered, every decode step through the
+    int8_dyn step (K7's plain version on the CPU)."""
+    from multiverse_torch.ops import quant as tquant
+    from multiverse_torch.serving import aserver
+
+    steps = []
+    dyn = tquant.decode_step_gathered_q8dyn
+
+    def counting(*args, **kw):
+        steps.append(1)
+        return dyn(*args, **kw)
+
+    monkeypatch.setattr(tquant, "decode_step_gathered_q8dyn", counting)
+    cfg = _cfg()
+    obs = _random_obs(rng, cfg, 1)[0]
+    answers = []
+
+    def ask_then_stop(server):
+        client = PredictionClient(port=server.port)
+        try:
+            answers.append(client.predict(obs, pred_len=3))
+        finally:
+            client.close()
+
+    monkeypatch.setattr(aserver.AsyncPredictionServer, "wait", ask_then_stop)
+    tserve.main(["out", "model", "--device", "cpu", "--random_init",
+                 "--port", "0", "--use_gnn", "--use_scene_enc",
+                 "--use_beam_search", "--beam_size", "3", "--diverse_beam",
+                 "--diverse_gamma", "0.01", "--fix_num_timestep", "1",
+                 "--compute_dtype", "bfloat16", "--decode_quant", "int8_dyn",
+                 "--max_batch", "2", "--T_pred", "4", "--obs_len", "4",
+                 "--scene_h", "12", "--scene_w", "16", "--scene_class", "5",
+                 "--emb_size", "8", "--enc_hidden_size", "16",
+                 "--dec_hidden_size", "16", "--scene_conv_dim", "8"])
+    (answer,) = answers
+    assert answer["trajs"].shape == (3, 3, 2) and answer["pred_len"] == 3
+    assert np.isfinite(answer["trajs"]).all()
+    assert np.isfinite(answer["logprobs"]).all()
+    # warm-up and the request: T_pred steps each, all through int8_dyn
+    assert len(steps) >= 2 * 4 and len(steps) % 4 == 0
 
 
 def test_serve_cli_loads_npz_weights(tmp_path):
