@@ -24,7 +24,15 @@
    time (torch.profiler). K2 and K3 also fail unless their attention
    launch's int8 gate inputs (h2_q) equal the plain version's but for
    rounding ties (at least 0.9999 of them equal, none more than one step
-   off). K7 also fails unless its h2_f is within 1e-5 of the plain one
+   off), and unless their gate launch (``gate_lstm_q8``), fed the plain
+   h2_q, gives a bf16 c' equal to the plain gate's in at least 0.999 of
+   entries with none more than one bf16 step off, a gate that must reject
+   three planted layout faults (the last K tile dropped, gates i and g
+   swapped in one 8-column chunk, tap 8 zeroed). K3's attention launch,
+   the K2/K3 gate launch and K7's gate launch are each timed alone beside
+   their own bound and achieved int8 rate, with ``torch._int_mm`` of the
+   explicit im2col (the int8 GEMM alone) printed as information. K7 also
+   fails unless its h2_f is within 1e-5 of the plain one
    but at pixels (at most 0.001 of them) where every channel's
    difference is explained by whole bf16 steps of the pixel's attention
    weights, unless its r_p is the exact patch max of that h2_f, and
@@ -50,7 +58,8 @@
    (max_batch 8, T=12) and a greedy one (max_batch 32). For each, K3 is
    first held against its plain version at the rows the engine gives
    it (160 with permuted parents for beam, 32 with identity parents
-   for greedy); then 4 client threads send the same requests (32 beam,
+   for greedy), its gate launch included; then 4 client threads send the
+   same requests (32 beam,
    64 greedy) over HTTP on 127.0.0.1 through each front end:
    ``AsyncPredictionServer`` (the CLI's default), then
    ``PredictionServer``. Checks every response, that the int8a kernel
@@ -144,10 +153,13 @@ from multiverse_torch.ops.fused_decode import (
     decode_step_ref,
     decode_step_v2,
     decode_step_v2_ref,
+    _im2col9,
     gate_input_q8,
     gate_input_q8_ref,
     gate_inputs_q8dyn,
     gate_inputs_q8dyn_ref,
+    gate_lstm_q8,
+    gate_lstm_q8_ref,
     gate_lstm_q8dyn,
     gate_lstm_q8dyn_ref,
     h2f_weight_flips,
@@ -378,17 +390,20 @@ def check_close(what: str, out, ref) -> float:
 
 def check_q8(what: str, quant, q8: dict, H: int, W: int, attn_q8: bool):
     """K2 (int8) or K3 (int8a) against its plain version on the same
-    card tensors: h, c and logits within TOL, and the int8 gate inputs
+    card tensors: h, c and logits within TOL, the int8 gate inputs
     (h2_q) of the attention launch equal to the plain version's but for
-    rounding ties, which move an entry by one step. Returns the step
-    (to time), its max abs err and the share of equal gate inputs."""
+    rounding ties, which move an entry by one step, and the gate launch
+    on the plain version's own h2_q giving the plain gate's c' but for
+    rounding (``c_gate``). Returns the step (to time), its max abs err
+    and the plain h2_q."""
     def run(fn=decode_step_gathered_q8):
         return fn(quant, **q8, H=H, W=W, attn_q8=attn_q8)
     out = run()
     torch.cuda.synchronize()
     err = check_close(what, out, run(decode_step_gathered_q8_ref))
     args = (q8["parent_rows"], q8["h"], q8["scene"], H, W, attn_q8)
-    diff = gate_input_q8(*args).int() - gate_input_q8_ref(*args).int()
+    ref_h2q = gate_input_q8_ref(*args)
+    diff = gate_input_q8(*args).int() - ref_h2q.int()
     same = float((diff == 0).float().mean())
     print("kernel phase %s: int8 gate inputs equal to the plain version's: "
           "%.6f (max step %d)" % (what, same, int(diff.abs().max())))
@@ -397,7 +412,15 @@ def check_q8(what: str, quant, q8: dict, H: int, W: int, attn_q8: bool):
             f"{what}: the int8 gate inputs differ from the plain version's "
             f"beyond rounding ties: {same} equal (at least {H2Q_SAME_MIN}),"
             f" max step {int(diff.abs().max())} (at most 1)")
-    return run, err, same
+    gate = (quant, q8["cell_b"], q8["prev_ids"], q8["parent_rows"], ref_h2q,
+            q8["c"], H, W)
+    _, got = gate_lstm_q8(*gate)
+    torch.cuda.synchronize()
+    if not c_gate(f"{what} gate launch", "kernel on the plain h2_q", got,
+                  gate_lstm_q8_ref(*gate)[1]):
+        raise AssertionError(f"{what}: the gate launch disagrees with the "
+                             "plain gate on the same h2_q")
+    return run, err, ref_h2q
 
 
 def check_q8dyn(what: str, quant, q8: dict, H: int, W: int):
@@ -482,12 +505,14 @@ def kernel_phase(model, cfg, dev) -> dict:
 
     q8 = {k: v for k, v in ops.items() if k not in ("cell_w", "emb_table")}
     for name, attn_q8 in (("K2", False), ("K3", True)):
-        run, err, _ = check_q8(name, quant, q8, H, W, attn_q8)
+        run, err, ref_h2q = check_q8(name, quant, q8, H, W, attn_q8)
         stats[name] = dict(max_abs_err=err, **timed(
             name, run, lambda: run(decode_step_gathered_q8_ref), reps=30,
             plain_reps=5, roof=bound(ops, H, W, E, "int8",
                                       "int8" if attn_q8 else "bf16",
                                       n_scales=2)))
+    q8_gate_faults(quant, q8, ref_h2q, H, W)
+    launch_rates(quant, q8, ref_h2q, H, W)
 
     quant_dyn = quantize_decode_weights_v2(
         model["scales"]["0"]["dec_class"],
@@ -519,16 +544,17 @@ def bf16_steps(a, b):
     return (ordered(a) - ordered(b)).abs()
 
 
-def c_gate(what: str, got, want) -> bool:
-    """K7's gate-launch gate: bf16 c' equal to the plain gate's in at
-    least C_SAME_MIN of entries, none more than one bf16 step off.
-    Prints the margins; returns whether it passes."""
+def c_gate(launch: str, what: str, got, want) -> bool:
+    """The gate launches' gate (K2/K3's, K7's): bf16 c' equal to the
+    plain gate's in at least C_SAME_MIN of entries, none more than one
+    bf16 step off. Prints the margins; returns whether it passes."""
     steps = bf16_steps(got, want)
     same, worst = float((steps == 0).float().mean()), int(steps.max())
     ok = same >= C_SAME_MIN and worst <= 1
-    print("kernel phase K7 gate launch, %s: c' equal in %.6f of entries "
-          "(at least %.3f), max %d bf16 steps (at most 1): %s"
-          % (what, same, C_SAME_MIN, worst, "passes" if ok else "rejected"))
+    print("kernel phase %s, %s: c' equal in %.6f of entries (at least "
+          "%.3f), max %d bf16 steps (at most 1): %s"
+          % (launch, what, same, C_SAME_MIN, worst,
+             "passes" if ok else "rejected"))
     return ok
 
 
@@ -543,7 +569,8 @@ def q8dyn_kernel_phase(quant, q8: dict, H: int, W: int,
     _, want = gate_lstm_q8dyn_ref(*gate, ref_h2f, ref_rp, q8["c"], H, W)
     _, got = gate_lstm_q8dyn(*gate, ref_h2f, ref_rp, q8["c"], H, W)
     torch.cuda.synchronize()
-    if not c_gate("kernel on the plain inputs", got, want):
+    if not c_gate("K7 gate launch", "kernel on the plain inputs", got,
+                  want):
         raise AssertionError("K7's gate launch disagrees with the plain "
                              "gate on the same inputs")
     h2_b = ref_h2f.to(torch.bfloat16).float()
@@ -553,11 +580,98 @@ def q8dyn_kernel_phase(quant, q8: dict, H: int, W: int,
             ("planted fault: h2_f rounded to bf16 before quantising",
              (h2_b, row_scales_q8dyn_ref(h2_b, H, W)))):
         _, fault = gate_lstm_q8dyn_ref(*gate, hf, rp, q8["c"], H, W)
-        if c_gate(what, fault, want):
+        if c_gate("K7 gate launch", what, fault, want):
             raise AssertionError(f"K7's gate does not reject the {what}")
+    M, D = ref_h2f.shape
+    E = quant.emb_q.shape[-1]
+    n_ids = int(torch.unique(q8["prev_ids"]).numel())
+    launch_rate("K7 gate launch",
+                lambda: gate_lstm_q8dyn(*gate, ref_h2f, ref_rp, q8["c"], H, W),
+                ops=2.0 * M * 9 * (E + D) * 4 * D,
+                nbytes=(M * D * 4 + M * 4 + n_ids * H * W * E + M * D * 2
+                        + 4 * D * 9 * (E + D) + 3 * 4 * D * 4
+                        + 2 * M * D * 2))
     return dict(max_abs_err=err, **timed(
         "K7", run, lambda: run(decode_step_gathered_q8dyn_ref), reps=30,
         plain_reps=5, roof=k7_bound))
+
+
+def q8_gate_faults(quant, q8: dict, ref_h2q, H: int, W: int) -> None:
+    """K2/K3's gate-launch gate (``c_gate``) must reject three planted
+    layout faults, each computed with the plain gate on the plain h2_q:
+    the last K tile of 128 dropped, gates i and g swapped in one
+    8-column chunk, and tap s = 8 zeroed."""
+    gate = (q8["cell_b"], q8["prev_ids"], q8["parent_rows"], ref_h2q,
+            q8["c"], H, W)
+    want = gate_lstm_q8_ref(quant, *gate)[1]
+    w = quant.w_q
+    D = ref_h2q.shape[-1]
+    Kdim = w.shape[0]
+    last = (Kdim - 1) // 128 * 128
+    dropped = w.clone()
+    dropped[last:] = 0
+    swapped = w.clone()
+    swapped[:, 0:8], swapped[:, D:D + 8] = w[:, D:D + 8], w[:, 0:8]
+    tap = w.clone()
+    tap[8 * (Kdim // 9):] = 0
+    for what, wq in (
+            (f"planted fault: the last K tile (k >= {last}) dropped",
+             dropped),
+            ("planted fault: gates i and g swapped in one 8-column chunk",
+             swapped),
+            ("planted fault: tap s = 8 zeroed", tap)):
+        fault = gate_lstm_q8_ref(quant._replace(w_q=wq), *gate)[1]
+        if c_gate("K2/K3 gate launch", what, fault, want):
+            raise AssertionError(f"K2/K3's gate does not reject the {what}")
+
+
+def launch_rate(what: str, fn, ops: float, nbytes: float) -> None:
+    """One launch's median time (CUDA events) beside its own bound (the
+    bytes it must move over the HBM rate, its int8 operations over the
+    int8 peak) and its achieved int8 rate."""
+    ms = median_ms(fn, reps=30)
+    roof = roofline(nbytes, {"int8": ops})
+    print("kernel phase %s: %.4f ms, bound %.4f ms (%s), %.1f%% of the "
+          "bound; %.1f int8 TOP/s, %.2f%% of the %.0f TOP/s peak"
+          % (what, ms, roof["bound_ms"], roof["bound_by"],
+             100 * roof["bound_ms"] / ms, ops / ms / 1e9,
+             100 * ops / (ms * 1e-3) / PEAK_OPS["int8"],
+             PEAK_OPS["int8"] / 1e12))
+
+
+def launch_rates(quant, q8: dict, ref_h2q, H: int, W: int) -> None:
+    """K3's attention launch and K2/K3's gate launch alone at these rows,
+    each beside its own bound; then, as information, torch._int_mm on the
+    explicit im2col at the same M, K and N (the int8 GEMM alone, with no
+    gather and no LSTM: the port never calls it)."""
+    NK = q8["prev_ids"].shape[0]
+    HW, M = H * W, NK * H * W
+    D = ref_h2q.shape[-1]
+    C = q8["scene"].shape[-1]
+    E = quant.emb_q.shape[-1]
+    Kdim = 9 * (E + D)
+    n_ids = int(torch.unique(q8["prev_ids"]).numel())
+    launch_rate("K3 attention launch",
+                lambda: gate_input_q8(q8["parent_rows"], q8["h"], q8["scene"],
+                                      H, W, True),
+                ops=2.0 * M * 9 * ((D + C) + D),
+                nbytes=M * D * 2 + M * C * 2 + M * D)
+    gate = (quant, q8["cell_b"], q8["prev_ids"], q8["parent_rows"], ref_h2q,
+            q8["c"], H, W)
+    launch_rate("K2/K3 gate launch", lambda: gate_lstm_q8(*gate),
+                ops=2.0 * M * Kdim * 4 * D,
+                nbytes=(M * D + n_ids * HW * E + M * D * 2 + 4 * D * Kdim
+                        + 2 * 4 * D * 4 + 2 * M * D * 2))
+    emb = quant.emb_q.reshape(HW, HW, E)[q8["prev_ids"].long()]
+    a = _im2col9(torch.cat([emb, ref_h2q.reshape(NK, HW, D)], dim=-1)
+                 .reshape(NK, H, W, -1)).contiguous()
+    try:
+        ms = "%.4f ms" % median_ms(lambda: torch._int_mm(a, quant.w_q),
+                                   reps=30)
+    except RuntimeError as exc:   # information only
+        ms = f"not measured ({exc})"
+    print("kernel phase K2/K3: torch._int_mm of the explicit im2col "
+          "[%d, %d] x [%d, %d] alone %s" % (M, Kdim, Kdim, 4 * D, ms))
 
 
 def k8_k9_kernel_phase(model, cfg, ops, k1_out, H: int, W: int) -> dict:
@@ -1314,7 +1428,8 @@ def main() -> int:
     print("kernel build + load: %.1f s (%s)"
           % (time.perf_counter() - t0, _build.library_path().name))
     for line in _build.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line \
+                or "spill" in line or "Performance Loss" in line:
             print("  ptxas:", line.strip())
 
     cfg = flagship_config()

@@ -311,21 +311,34 @@ def decode_step_gathered_q8_ref(
     "int8a"), the gate input h2_q = clip(rint((h + agg) * 127/2), +-127)
     quantised from the f32 sum, the gate product int8 x int8 with exact
     integer sums (in f64), dequantised as acc * t_c + b, then K1's LSTM
-    update and readout. Returns (h', c' in ``h``'s type, logits
+    update and readout: :func:`gate_input_q8_ref`, then
+    :func:`gate_lstm_q8_ref`. Returns (h', c' in ``h``'s type, logits
     [NK*HW, 1] f32) in the new beam order."""
+    h2_q = gate_input_q8_ref(parent_rows, h, scene, H, W, attn_q8)
+    h_out, c_out = gate_lstm_q8_ref(quant, cell_b, prev_ids, parent_rows,
+                                    h2_q, c, H, W, forget_bias)
+    return h_out, c_out, _readout(h_out, h2g_w, prev_ids.shape[0], H, W)
+
+
+def gate_lstm_q8_ref(quant, cell_b, prev_ids, parent_rows, h2_q, c,
+                     H: int, W: int, forget_bias: float = 1.0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2/K3's gate product and LSTM update (plain) on the int8 gate
+    input h2_q [NK*HW, D]: the patches of [emb_q row of prev_ids[r]
+    (+) h2_q] times w_q with exact integer sums (in f64), dequantised as
+    acc * t_c + b, then K1's LSTM update with c read through
+    parent_rows. Returns (h', c') in ``c``'s type."""
     HW = H * W
     NK = prev_ids.shape[0]
-    D = h.shape[-1]
-    h2_q = gate_input_q8_ref(parent_rows, h, scene, H, W, attn_q8).float()
-    emb = quant.emb_q.reshape(HW, HW, -1)[prev_ids.long()].float()
-    patches = _im2col9(torch.cat([emb, h2_q.reshape(NK, HW, D)], dim=-1)
-                       .reshape(NK, H, W, -1))
-    acc = (patches.double() @ quant.w_q.double()).float()
+    D = h2_q.shape[-1]
+    emb = quant.emb_q.reshape(HW, HW, -1)[prev_ids.long()].double()
+    patches = _im2col9(torch.cat([emb, h2_q.double().reshape(NK, HW, D)],
+                                 dim=-1).reshape(NK, H, W, -1))
+    acc = (patches @ quant.w_q.double()).float()
     gates = acc * quant.t_c.reshape(1, -1) + cell_b.float().reshape(1, -1)
     cp = c.reshape(-1, HW, D)[parent_rows.long()]
     new_c, new_h = _lstm_update(gates, cp, forget_bias)
-    h_out, c_out = new_h.to(h.dtype), new_c.to(h.dtype)
-    return h_out, c_out, _readout(h_out, h2g_w, NK, H, W)
+    return new_h.to(c.dtype), new_c.to(c.dtype)
 
 
 def gate_input_q8_ref(parent_rows, h, scene, H, W,
@@ -643,36 +656,80 @@ def decode_step_gathered_q8(
     fn = "decode_step_gathered_q8"
     dev, HW, NK, D, C = _check_state(fn, h, c, scene, h2g_w, H, W,
                                      prev_ids, parent_rows)
-    E = quant.emb_q.shape[-1]
-    Kdim = 9 * (E + D)
-    i8 = torch.int8
-    _require(E % 16 == 0, fn, f"E={E} must be a multiple of 16")
-    _check_cuda(fn, "emb_q", quant.emb_q.reshape(HW, HW, E), i8,
-                (HW, HW, E), dev)
-    _check_cuda(fn, "w_qt", quant.w_qt, i8, (4 * D, Kdim), dev)
-    _check_cuda(fn, "t_c", quant.t_c.reshape(-1), torch.float32, (4 * D,),
-                dev)
-    _check_cuda(fn, "cell_b", cell_b, torch.float32, (4 * D,), dev)
+    _check_q8_operands(fn, quant, cell_b, H, W, D, dev)
     from multiverse_torch.ops._build import check, load_library
 
     lib = load_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     h2_q = _attention_q8_launch(lib, check, parent_rows, h, scene, NK, H, W,
                                 D, C, attn_q8)
-    h_out = torch.empty((NK * HW, D), dtype=torch.bfloat16, device=dev)
-    c_out = torch.empty((NK * HW, D), dtype=torch.bfloat16, device=dev)
-    check(lib, lib.mv_gate_lstm_q8(
-        prev_ids.data_ptr(), parent_rows.data_ptr(), quant.emb_q.data_ptr(),
-        h2_q.data_ptr(), c.data_ptr(), quant.w_qt.data_ptr(),
-        quant.t_c.data_ptr(), cell_b.data_ptr(), h_out.data_ptr(),
-        c_out.data_ptr(), NK, H, W, D, E, float(forget_bias), stream),
-        "gate_lstm_q8")
-    logits = _readout_launch(lib, check, h_out, h2g_w, NK, H, W, D, stream)
+    h_out, c_out = _gate_lstm_q8_launch(lib, check, quant, cell_b, prev_ids,
+                                        parent_rows, h2_q, c, NK, H, W, D,
+                                        forget_bias)
+    logits = _readout_launch(lib, check, h_out, h2g_w, NK, H, W, D,
+                             torch.cuda.current_stream(dev).cuda_stream)
     decode_step_gathered_q8.launches["int8a" if attn_q8 else "int8"] += 1
     return h_out, c_out, logits
 
 
 decode_step_gathered_q8.launches = {"int8": 0, "int8a": 0}
+
+
+def _check_q8_operands(fn, quant, cell_b, H, W, D, dev):
+    """Checks of the int8 operands of K2/K3's gate launch."""
+    HW = H * W
+    E = quant.emb_q.shape[-1]
+    i8 = torch.int8
+    _require(E % 16 == 0, fn, f"E={E} must be a multiple of 16")
+    _check_cuda(fn, "emb_q", quant.emb_q.reshape(HW, HW, E), i8,
+                (HW, HW, E), dev)
+    _check_cuda(fn, "w_qt", quant.w_qt, i8, (4 * D, 9 * (E + D)), dev)
+    _check_cuda(fn, "t_c", quant.t_c.reshape(-1), torch.float32, (4 * D,),
+                dev)
+    _check_cuda(fn, "cell_b", cell_b, torch.float32, (4 * D,), dev)
+
+
+def _gate_lstm_q8_launch(lib, check, quant, cell_b, prev_ids, parent_rows,
+                         h2_q, c, NK, H, W, D, forget_bias):
+    dev = c.device
+    M = NK * H * W
+    h_out = torch.empty((M, D), dtype=torch.bfloat16, device=dev)
+    c_out = torch.empty((M, D), dtype=torch.bfloat16, device=dev)
+    check(lib, lib.mv_gate_lstm_q8(
+        prev_ids.data_ptr(), parent_rows.data_ptr(), quant.emb_q.data_ptr(),
+        h2_q.data_ptr(), c.data_ptr(), quant.w_qt.data_ptr(),
+        quant.t_c.data_ptr(), cell_b.data_ptr(), h_out.data_ptr(),
+        c_out.data_ptr(), NK, H, W, D, quant.emb_q.shape[-1],
+        float(forget_bias), torch.cuda.current_stream(dev).cuda_stream),
+        "gate_lstm_q8")
+    return h_out, c_out
+
+
+def gate_lstm_q8(quant, cell_b, prev_ids, parent_rows, h2_q, c,
+                 H: int, W: int, forget_bias: float = 1.0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2/K3's gate launch alone, on a given int8 gate input h2_q (see
+    :func:`gate_lstm_q8_ref`). CPU tensors run the plain version; CUDA
+    tensors take what :func:`decode_step_gathered_q8` takes, with h2_q
+    int8 [NK*HW, D], and raise on anything else.
+    ``gate_lstm_q8.launches`` counts kernel launches."""
+    if h2_q.device.type == "cpu":
+        return gate_lstm_q8_ref(quant, cell_b, prev_ids, parent_rows, h2_q,
+                                c, H, W, forget_bias)
+    fn = "gate_lstm_q8"
+    dev, _, NK, D, _ = _check_state(fn, c, c, None, None, H, W, prev_ids,
+                                    parent_rows)
+    _check_cuda(fn, "h2_q", h2_q, torch.int8, (NK * H * W, D), dev)
+    _check_q8_operands(fn, quant, cell_b, H, W, D, dev)
+    from multiverse_torch.ops._build import check, load_library
+
+    out = _gate_lstm_q8_launch(load_library(), check, quant, cell_b,
+                               prev_ids, parent_rows, h2_q, c, NK, H, W, D,
+                               forget_bias)
+    gate_lstm_q8.launches += 1
+    return out
+
+
+gate_lstm_q8.launches = 0
 
 
 def decode_step(

@@ -8,9 +8,10 @@ is whole bf16 steps of their attention weights, its r_p the exact patch
 max of that h2_f, and its gate launch on the plain version's own
 inputs, bf16 c' equal in at least 0.999 of entries and none more than
 one bf16 step off, a gate shown to reject
-two planted faults; the training attention's K4 (forward) and K5
-(backward), max abs error 2e-2 x max |plain| (K4 also 2e-2), and the
-decodes that must run them. A CUDA kernel has no CPU mode, so without a
+two planted faults; K2/K3's gate launch on the plain h2_q held to the
+same gate, shown to reject three planted layout faults; the training
+attention's K4 (forward) and K5 (backward), max abs error 2e-2 x max
+|plain| (K4 also 2e-2), and the decodes that must run them. A CUDA kernel has no CPU mode, so without a
 GPU every test here skips.
 
 This file imports neither jax nor tests/conftest.py's fixtures, so it
@@ -52,6 +53,8 @@ from multiverse_torch.ops.fused_decode import (
     gate_input_q8_ref,
     gate_inputs_q8dyn,
     gate_inputs_q8dyn_ref,
+    gate_lstm_q8,
+    gate_lstm_q8_ref,
     gate_lstm_q8dyn,
     gate_lstm_q8dyn_ref,
     h2f_weight_flips,
@@ -168,6 +171,9 @@ def _q8_operands(NK, H, W, D, E, C, device, seed=0):
     (6, 6, 8, 64, 16, 4),        # M = 288: a ragged last tile
     (5, 7, 9, 32, 16, 0),        # odd grid, no scene features
     (40, 18, 32, 256, 32, 64),   # the beam decode's widths
+    (1, 18, 32, 256, 32, 64),    # M = 576: ragged last tile at full width
+    (3, 18, 32, 256, 32, 64),    # M = 1728
+    (4, 6, 8, 128, 16, 4),       # image-row boxes taller than the grid
 ])
 def test_q8_kernel_matches_plain_version(cuda, NK, H, W, D, E, C, attn_q8):
     quant, ops = _q8_operands(NK, H, W, D, E, C, cuda)
@@ -185,9 +191,43 @@ def test_q8_kernel_matches_plain_version(cuda, NK, H, W, D, E, C, attn_q8):
     # the int8 gate inputs differ only where a rounding tie of the
     # attention flips one step
     args = (ops["parent_rows"], ops["h"], ops["scene"], H, W, attn_q8)
-    diff = (gate_input_q8(*args).int() - gate_input_q8_ref(*args).int())
+    ref_h2q = gate_input_q8_ref(*args)
+    diff = (gate_input_q8(*args).int() - ref_h2q.int())
     assert int(diff.abs().max()) <= 1
     assert float((diff != 0).float().mean()) < 1e-3
+    # the gate launch alone, on the plain version's own h2_q
+    gate = (quant, ops["cell_b"], ops["prev_ids"], ops["parent_rows"],
+            ref_h2q, ops["c"], H, W)
+    launched = gate_lstm_q8.launches
+    _, c_k = gate_lstm_q8(*gate)
+    assert gate_lstm_q8.launches == launched + 1
+    same, worst = c_agreement(c_k, gate_lstm_q8_ref(*gate)[1])
+    assert same >= 0.999 and worst <= 1, (same, worst)
+
+
+def test_q8_gate_rejects_planted_faults(cuda):
+    """The gate-launch gate (c' equal in >= 0.999 of entries, none more
+    than one bf16 step off) rejects three layout faults of the gate
+    launch: the last K tile of 128 dropped, gates i and g swapped in one
+    8-column chunk, tap s = 8 zeroed."""
+    H, W, D = 18, 32, 256
+    quant, ops = _q8_operands(40, H, W, D, 32, 64, cuda)
+    h2_q = gate_input_q8_ref(ops["parent_rows"], ops["h"], ops["scene"], H,
+                             W, True)
+    gate = (ops["cell_b"], ops["prev_ids"], ops["parent_rows"], h2_q,
+            ops["c"], H, W)
+    _, want = gate_lstm_q8_ref(quant, *gate)
+    w = quant.w_q
+    Kdim = w.shape[0]
+    dropped, swapped, tap = w.clone(), w.clone(), w.clone()
+    dropped[(Kdim - 1) // 128 * 128:] = 0
+    swapped[:, 0:8], swapped[:, D:D + 8] = w[:, D:D + 8], w[:, 0:8]
+    tap[8 * (Kdim // 9):] = 0
+    for what, wq in (("last K tile", dropped), ("i/g chunk", swapped),
+                     ("tap 8", tap)):
+        _, got = gate_lstm_q8_ref(quant._replace(w_q=wq), *gate)
+        same, worst = c_agreement(got, want)
+        assert same < 0.999 or worst > 1, (what, same, worst)
 
 
 def test_q8_kernel_rejects_operands_it_does_not_take(cuda):
@@ -404,6 +444,8 @@ def _q8dyn_operands(NK, H, W, D, E, C, device, seed=0):
     (6, 6, 8, 64, 16, 4),        # M = 288: a ragged last tile
     (5, 7, 9, 32, 16, 0),        # odd grid, no scene features
     (40, 18, 32, 256, 32, 64),   # the beam decode's widths: 9E = 288
+    (1, 18, 32, 256, 32, 64),    # M = 576
+    (3, 18, 32, 256, 32, 64),    # M = 1728
 ])
 def test_q8dyn_kernel_matches_plain_version(cuda, NK, H, W, D, E, C):
     quant, ops = _q8dyn_operands(NK, H, W, D, E, C, cuda)
@@ -431,6 +473,24 @@ def test_q8dyn_kernel_matches_plain_version(cuda, NK, H, W, D, E, C):
     h_p, c_p = gate_lstm_q8dyn_ref(*gate, ref_h2f, ref_rp, ops["c"], H, W)
     same, worst = c_agreement(c_k, c_p)
     assert same >= 0.999 and worst <= 1, (same, worst)
+
+
+def test_q8dyn_gate_launch_on_image_row_boxes_taller_than_the_grid(cuda):
+    """K7's gate launch where its recurrent A tiles are boxes of whole
+    image rows, more rows than the grid has (6 x 8, D = 128): on the
+    plain h2_f and r_p, c' equal but for rounding; the whole step within
+    TOL."""
+    H, W = 6, 8
+    quant, ops = _q8dyn_operands(4, H, W, 128, 16, 4, cuda)
+    h2_f, r_p = gate_inputs_q8dyn_ref(ops["parent_rows"], ops["h"],
+                                      ops["scene"], H, W)
+    gate = (quant, ops["cell_b"], ops["prev_ids"], ops["parent_rows"])
+    _, c_k = gate_lstm_q8dyn(*gate, h2_f, r_p, ops["c"], H, W)
+    _, c_p = gate_lstm_q8dyn_ref(*gate, h2_f, r_p, ops["c"], H, W)
+    same, worst = c_agreement(c_k, c_p)
+    assert same >= 0.999 and worst <= 1, (same, worst)
+    _check_outputs(decode_step_gathered_q8dyn(quant, **ops, H=H, W=W),
+                   decode_step_gathered_q8dyn_ref(quant, **ops, H=H, W=W))
 
 
 def test_q8dyn_gate_rejects_planted_faults(cuda):

@@ -35,6 +35,7 @@ from multiverse_torch.ops import (
     quantize_decode_weights_v2,
     select_quant,
 )
+from multiverse_torch.ops.quant import gate_k_order, gate_row_order
 from multiverse_torch.ops.fused_decode import (
     _attention_weights,
     gate_input_q8,
@@ -93,9 +94,12 @@ def test_quantize_decode_weights_matches_jax(rng):
         np.testing.assert_array_equal(np.asarray(j), t.numpy(), err_msg=name)
     assert tq.t_c.dtype == torch.float32 and tq.t_c.shape == jq[2].shape
     np.testing.assert_allclose(np.asarray(jq[2]), tq.t_c.numpy(), rtol=1e-7)
-    # the kernel's operand layout: each gate column's contraction
+    # the kernel's operand layout: each gate column's contraction, rows
+    # in the gate launch's order
     assert tq.w_qt.is_contiguous()
-    torch.testing.assert_close(tq.w_qt, tq.w_q.t(), rtol=0, atol=0)
+    inverse = torch.argsort(gate_row_order(D))
+    torch.testing.assert_close(tq.w_qt[inverse],
+                               tq.w_q[gate_k_order(E, D)].t(), rtol=0, atol=0)
 
 
 def test_quantize_decode_weights_v2_matches_jax(rng):
@@ -115,10 +119,12 @@ def test_quantize_decode_weights_v2_matches_jax(rng):
             assert t.dtype == torch.int8, name
             np.testing.assert_array_equal(np.asarray(j), t.numpy(),
                                           err_msg=name)
-    # the kernel's operand layouts: each gate column's contraction
+    # the kernel's operand layouts: each gate column's contraction, rows
+    # in the gate launch's order
+    inverse = torch.argsort(gate_row_order(D))
     for t, tt in ((tq.w_eq, tq.w_eqt), (tq.w_hq, tq.w_hqt)):
         assert tt.is_contiguous()
-        torch.testing.assert_close(tt, t.t(), rtol=0, atol=0)
+        torch.testing.assert_close(tt[inverse], t.t(), rtol=0, atol=0)
     # the embedding rows are shift-major, not a slice of the fused w_q
     assert tq.w_eq.shape == (9 * E, 4 * D) and tq.w_hq.shape == (9 * D, 4 * D)
     torch.testing.assert_close(tq.emb_q, _quant_pair(o)[1].emb_q,
