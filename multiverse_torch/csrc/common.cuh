@@ -1,11 +1,14 @@
-// Device helpers shared by the fused decode-step kernels
-// (fused_decode.cu: bf16, fused_decode_q8.cu: int8, int8a, int8_dyn).
+// Device and launch helpers shared by the fused decode-step kernels
+// (fused_decode.cu: bf16, fused_decode_q8.cu: int8, int8a, int8_dyn) and
+// the training attention (gnn_dense.cu).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -96,6 +99,73 @@ constexpr int ROW_THREADS = 256;
 inline unsigned row_blocks(int NK, int HW) {
   const long long items = (long long)NK * HW;
   return (unsigned)((items + ROW_THREADS / 32 - 1) / (ROW_THREADS / 32));
+}
+
+// ------------------------------------------------------------- host side
+
+constexpr int kMaxDevices = 64;
+
+// The SM count of the current card, read once per card.
+inline cudaError_t sm_count(int* sms) {
+  static std::atomic<int> counts[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices)
+    return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  int n = counts[dev].load();
+  if (n == 0) {
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    counts[dev].store(n);
+  }
+  *sms = n;
+  return cudaSuccess;
+}
+
+// A kernel's dynamic shared-memory limit (one static instance per kernel):
+// set on a card at its first launch (above 48 KB only by this attribute),
+// and raised only when a launch needs more than was set; the SM's split
+// of L1 and shared memory prefers shared memory, so that as many blocks as
+// fit are resident at once.
+struct SmemAttr {
+  std::atomic<int> bytes[kMaxDevices];
+  cudaError_t raise(const void* kernel, int need) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices && bytes[dev].load() >= need) return cudaSuccess;
+    if (need > 48 * 1024)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, need);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess && dev < kMaxDevices) bytes[dev].store(need);
+    return err;
+  }
+};
+
+// The tile of the staged attention launches: up to 2 image rows by 32
+// columns, narrower where the tile and its one-pixel halo (`pixel_bytes`
+// a staged pixel, plus `fixed` bytes) would not fit in `max_bytes` of
+// shared memory. Returns the shared memory it takes, or 0 if none fits.
+inline size_t attn_tile(int H, int W, size_t pixel_bytes, size_t fixed,
+                        size_t max_bytes, int* BR, int* BW) {
+  int br = H < 2 ? H : 2, bw = W < 32 ? W : 32;
+  auto bytes = [&]() {
+    return (size_t)(br + 2) * (bw + 2) * pixel_bytes + fixed;
+  };
+  while (bytes() > max_bytes && (br > 1 || bw > 1)) {
+    if (br > 1)
+      br = 1;
+    else
+      bw = (bw + 1) / 2;
+  }
+  *BR = br;
+  *BW = bw;
+  return bytes() <= max_bytes ? bytes() : 0;
 }
 
 }  // namespace

@@ -26,6 +26,10 @@ from multiverse_torch.ops.fused_decode import (  # noqa: F401
     decode_step_v2,
     decode_step_v2_ref,
 )
+from multiverse_torch.ops.gate_layout import (  # noqa: F401
+    GateWeights,
+    prepare_gate_weights,
+)
 from multiverse_torch.ops.gnn import (  # noqa: F401
     gnn_neighbor_mask,
     gnn_step,

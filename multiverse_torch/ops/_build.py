@@ -39,9 +39,7 @@ _I = ctypes.c_int
 # name -> argtypes of each C entry point (all return a cudaError_t)
 _SIGNATURES = {
     "mv_gnn_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "mv_gate_lstm": [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P],
-    "mv_gate_lstm_tables": [_P] * 9 + [_I] * 4 + [ctypes.c_float, _P],
-    "mv_convlstm_cell": [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P],
+    "mv_gate_lstm": [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P],
     "mv_class_readout": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
     "mv_gnn_attention_h2q": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mv_gnn_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

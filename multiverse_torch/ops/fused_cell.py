@@ -3,9 +3,9 @@ f32 gates, then the LSTM update, bf16 in and out.
 
 Counterpart of ``multiverse_tpu/ops/pallas_cell.py``'s
 ``convlstm_step_pallas`` (K6). On the card it is K1's implicit-GEMM gate
-launch (``csrc/fused_decode.cu``, ``mv_convlstm_cell``) with x as the
+launch (``csrc/gate_wgmma.cuh``, through ``mv_gate_lstm``) with x as the
 per-row first operand, h unchanged (no attention) and c read from the
-same row, so the gates stay in shared memory and never reach device
+same row, so the gates stay in registers and never reach device
 memory. Like the JAX package, nothing wires it into ``convlstm_scan``:
 the composed :func:`~multiverse_torch.ops.convlstm.convlstm_step` stores
 bf16 gates, this step keeps them in f32, and which the scans should run
@@ -18,17 +18,20 @@ two.
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 
 from multiverse_torch.ops.convlstm import ConvLSTMState
 from multiverse_torch.ops.fused_decode import (
     _check_cuda,
+    _gate_launch,
+    _gate_weights,
     _im2col9,
     _lstm_update,
     _require,
 )
+from multiverse_torch.ops.gate_layout import GateWeights
 
 
 def convlstm_step_fused_ref(
@@ -57,13 +60,15 @@ def convlstm_step_fused(
     x: torch.Tensor,
     state: ConvLSTMState,
     forget_bias: float = 1.0,
+    weights: Optional[GateWeights] = None,
 ) -> Tuple[torch.Tensor, ConvLSTMState]:
     """K6: one fused ConvLSTM cell step (see :func:`convlstm_step_fused_ref`),
     bf16 in and out as the TPU kernel's wrapper casts. CPU tensors run
     the plain version; CUDA tensors run the kernel, which needs
     Cx % 8 == 0 and D % 32 == 0 and every operand on the same card, and
-    raises otherwise. ``convlstm_step_fused.launches`` counts kernel
-    launches."""
+    raises otherwise. ``weights`` is ``prepare_gate_weights`` of the
+    bf16 kernel [9*(Cx+D), 4D] with E = Cx, or made per call.
+    ``convlstm_step_fused.launches`` counts kernel launches."""
     if x.device.type == "cpu":
         return convlstm_step_fused_ref(params, x, state, forget_bias)
     fn = "convlstm_step_fused"
@@ -78,22 +83,18 @@ def convlstm_step_fused(
     x_rows = x.to(bf).reshape(M, Cx).contiguous()
     h_rows = state.h.to(bf).reshape(M, D).contiguous()
     c_rows = state.c.to(bf).reshape(M, D).contiguous()
-    w = params["kernel"].to(bf).reshape(-1, 4 * D).contiguous()
     b = params["bias"].float().reshape(-1).contiguous()
     _check_cuda(fn, "h", h_rows, bf, (M, D), dev)
     _check_cuda(fn, "c", c_rows, bf, (M, D), dev)
-    _check_cuda(fn, "kernel", w, bf, (9 * (Cx + D), 4 * D), dev)
-    _check_cuda(fn, "bias", b, torch.float32, (4 * D,), dev)
+    w = None if weights is not None else \
+        params["kernel"].to(bf).reshape(-1, 4 * D).contiguous()
+    weights = _gate_weights(fn, w, b, weights, Cx, D, dev, "kernel")
     from multiverse_torch.ops._build import check, load_library
 
-    lib = load_library()
-    h_out = torch.empty((N, H, W, D), dtype=bf, device=dev)
-    c_out = torch.empty((N, H, W, D), dtype=bf, device=dev)
-    check(lib, lib.mv_convlstm_cell(
-        x_rows.data_ptr(), h_rows.data_ptr(), c_rows.data_ptr(),
-        w.data_ptr(), b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-        N, H, W, D, Cx, float(forget_bias),
-        torch.cuda.current_stream(dev).cuda_stream), "convlstm_cell")
+    h_out, c_out = _gate_launch(load_library(), check, weights, b, None, None,
+                                x_rows, h_rows, c_rows, N, H, W, D,
+                                forget_bias)
+    h_out, c_out = h_out.reshape(N, H, W, D), c_out.reshape(N, H, W, D)
     convlstm_step_fused.launches += 1
     return h_out, ConvLSTMState(c=c_out, h=h_out)
 

@@ -23,7 +23,15 @@ Counterparts of the TPU kernels of ``multiverse_tpu/ops/pallas_decode.py``:
 One call of the gathered steps advances every beam row by one step,
 reading its parent's state and its previous cell's embedding row through
 ``parent_rows`` and ``prev_ids``, so the beam reorder costs no separate
-gather.
+gather. K1's three launches can also be called alone, each beside its
+plain version: :func:`gate_input_bf16` (the attention),
+:func:`gate_lstm_bf16` (the gate product and LSTM update) and
+:func:`class_readout` (the readout), as :func:`gate_input_q8` and
+:func:`gate_lstm_q8` are for K2/K3. The bf16 gate launch reads its
+weights in the layout of
+:func:`multiverse_torch.ops.gate_layout.prepare_gate_weights`, which the
+decoders prepare once per decode; a wrapper given no ``weights``
+prepares them itself.
 
 Each wrapper dispatches on the device of its tensors: CPU tensors go to
 the plain PyTorch version (``*_ref``), CUDA tensors to the hand-written
@@ -39,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from multiverse_torch.geometry import one_hot_grid
+from multiverse_torch.ops.gate_layout import GateWeights, prepare_gate_weights
 from multiverse_torch.ops.gnn import gnn_neighbor_mask
 from multiverse_torch.ops.layers import conv2d
 
@@ -127,19 +136,60 @@ def _readout(h_out, h2g_w, NK, H, W) -> torch.Tensor:
     return logits.reshape(NK * H * W, 1)
 
 
-def _decode_rows(cell_w, cell_b, h2g_w, emb, hp, cp, scene, H, W,
-                 forget_bias):
-    """``_decode_kernel`` on rows already in the output order: emb
-    [NK, HW, E], hp and cp [NK, HW, D]."""
-    dt = hp.dtype
-    NK = hp.shape[0]
-    h2 = _attention(hp, scene, H, W).to(dt)
+def class_readout_ref(h_out: torch.Tensor, h2g_w: torch.Tensor, H: int,
+                      W: int) -> torch.Tensor:
+    """The readout launch's plain version: logits [NK*HW, 1] f32 of h'
+    [NK*HW, D] and the taps' weights h2g_w [D, >=9]."""
+    return _readout(h_out, h2g_w, h_out.shape[0] // (H * W), H, W)
+
+
+def _gate_rows(cell_w, cell_b, emb, h2, cp, H, W, forget_bias):
+    """The gate product over [emb (+) h2] and the LSTM update of rows
+    already in the output order: emb [NK, HW, E], h2 and cp
+    [NK, HW, D]. Returns (h', c') in h2's type."""
+    dt = h2.dtype
+    NK = h2.shape[0]
     patches = _im2col9(torch.cat([emb.to(dt), h2], dim=-1)
                        .reshape(NK, H, W, -1))
     gates = patches.float() @ cell_w.float() + cell_b.float().reshape(1, -1)
     new_c, new_h = _lstm_update(gates, cp, forget_bias)
-    h_out, c_out = new_h.to(dt), new_c.to(dt)
-    return h_out, c_out, _readout(h_out, h2g_w, NK, H, W)
+    return new_h.to(dt), new_c.to(dt)
+
+
+def _decode_rows(cell_w, cell_b, h2g_w, emb, hp, cp, scene, H, W,
+                 forget_bias):
+    """``_decode_kernel`` on rows already in the output order: emb
+    [NK, HW, E], hp and cp [NK, HW, D]."""
+    h2 = _attention(hp, scene, H, W).to(hp.dtype)
+    h_out, c_out = _gate_rows(cell_w, cell_b, emb, h2, cp, H, W,
+                              forget_bias)
+    return h_out, c_out, _readout(h_out, h2g_w, hp.shape[0], H, W)
+
+
+def gate_input_bf16_ref(parent_rows, h, scene, H: int, W: int
+                        ) -> torch.Tensor:
+    """K1's attention launch (plain): h2 = h + agg in ``h``'s type,
+    [NK*HW, D] in the new beam order."""
+    HW = H * W
+    D = h.shape[-1]
+    hp = h.reshape(-1, HW, D)[parent_rows.long()]
+    return _attention(hp, scene, H, W).to(h.dtype).reshape(-1, D)
+
+
+def gate_lstm_bf16_ref(cell_w, cell_b, prev_ids, parent_rows, emb_table,
+                       h2, c, H: int, W: int, forget_bias: float = 1.0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's gate launch (plain) on a given h2 [NK*HW, D]: the patches of
+    [emb_table row of prev_ids[r] (+) h2] times cell_w with f32 sums,
+    + b, then the LSTM update with c read through parent_rows. Returns
+    (h', c') in h2's type."""
+    HW = H * W
+    NK = prev_ids.shape[0]
+    D = h2.shape[-1]
+    emb = emb_table.reshape(HW, HW, -1)[prev_ids.long()]
+    return _gate_rows(cell_w, cell_b, emb, h2.reshape(NK, HW, D),
+                      c.reshape(-1, HW, D)[parent_rows.long()], H, W,
+                      forget_bias)
 
 
 def decode_step_gathered_ref(
@@ -480,6 +530,11 @@ def _require(cond: bool, fn: str, msg: str) -> None:
 
 def _check_cuda(fn: str, name: str, t: torch.Tensor, dtype: torch.dtype,
                 shape: tuple, device: torch.device) -> None:
+    # every launch checks ten or so operands: the messages are formatted
+    # only for one that fails
+    if (t.device == device and t.dtype == dtype and tuple(t.shape) == shape
+            and t.is_contiguous() and t.data_ptr() % 16 == 0):
+        return
     _require(t.device == device, fn,
              f"{name} on {t.device}, expected {device}")
     _require(t.dtype == dtype, fn, f"{name} is {t.dtype}, expected {dtype}")
@@ -526,13 +581,69 @@ def _check_state(fn, h, c, scene, h2g_w, H, W, prev_ids=None,
     return dev, HW, NK, D, C
 
 
-def _readout_launch(lib, check, h_out, h2g_w, NK, H, W, D, stream):
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _readout_launch(lib, check, h_out, h2g_w, NK, H, W, D):
     logits = torch.empty((NK * H * W, 1), dtype=torch.float32,
                          device=h_out.device)
     check(lib, lib.mv_class_readout(
         h_out.data_ptr(), h2g_w.data_ptr(), h2g_w.shape[1],
-        logits.data_ptr(), NK, H, W, D, stream), "class_readout")
+        logits.data_ptr(), NK, H, W, D, _stream(h_out)), "class_readout")
     return logits
+
+
+def _attention_launch(lib, check, parent_rows, h, scene, NK, H, W, D, C):
+    """K1's attention launch: h2 = bf16(h + agg) [NK*HW, D]."""
+    h2 = torch.empty((NK * H * W, D), dtype=torch.bfloat16, device=h.device)
+    check(lib, lib.mv_gnn_attention(
+        _ptr(parent_rows), h.data_ptr(), _ptr(scene), h2.data_ptr(),
+        NK, H, W, D, C, _stream(h)), "gnn_attention")
+    return h2
+
+
+def _gate_launch(lib, check, weights, cell_b, prev_ids, parent_rows, emb,
+                 h2, c, NK, H, W, D, forget_bias, emb_bg=None, emb_dev=None):
+    """The bf16 gate launch (K1; K8 and K6 with null ids and parents; K9
+    with the tables): (h', c') [NK*HW, D] bf16."""
+    M = NK * H * W
+    h_out = torch.empty((M, D), dtype=torch.bfloat16, device=h2.device)
+    c_out = torch.empty((M, D), dtype=torch.bfloat16, device=h2.device)
+    check(lib, lib.mv_gate_lstm(
+        _ptr(prev_ids), _ptr(parent_rows), _ptr(emb), h2.data_ptr(),
+        c.data_ptr(), weights.w_t.data_ptr(), cell_b.data_ptr(),
+        _ptr(emb_bg), _ptr(emb_dev), h_out.data_ptr(), c_out.data_ptr(),
+        NK, H, W, D, weights.E, float(forget_bias), _stream(h2)), "gate_lstm")
+    return h_out, c_out
+
+
+def _gate_weights(fn, cell_w, cell_b, weights, E, D, dev, name="cell_w"):
+    """Checks of the bf16 gate launch's weights and bias (the kernel's
+    layout prepared from ``cell_w`` [9*(E+D), 4D] when ``weights`` is
+    None); returns the kernel's weights."""
+    bf = torch.bfloat16
+    _require(E % 8 == 0, fn, f"E={E} must be a multiple of 8")
+    _check_cuda(fn, "cell_b", cell_b, torch.float32, (4 * D,), dev)
+    if weights is None:
+        _check_cuda(fn, name, cell_w, bf, (9 * (E + D), 4 * D), dev)
+        weights = prepare_gate_weights(cell_w, E)
+    _require(weights.E == E, fn, f"weights are laid out for E={weights.E}, "
+             f"expected E={E}")
+    _check_cuda(fn, "w_t", weights.w_t, bf, (4 * D, 9 * (E + D)), dev)
+    return weights
+
+
+def _check_k1_gate(fn, cell_w, cell_b, emb_table, weights, H, W, D, dev):
+    """Checks of K1's gate operands; returns the kernel's weights."""
+    E = emb_table.shape[-1]
+    HW = H * W
+    _check_cuda(fn, "emb_table", emb_table, torch.bfloat16, (HW, HW, E), dev)
+    return _gate_weights(fn, cell_w, cell_b, weights, E, D, dev)
 
 
 def decode_step_gathered(
@@ -548,49 +659,108 @@ def decode_step_gathered(
     H: int,
     W: int,
     forget_bias: float = 1.0,
+    weights: Optional[GateWeights] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One fused decode step (see :func:`decode_step_gathered_ref` for
     the operands). CPU tensors run the plain version; CUDA tensors run
     the hand-written kernel, which takes bf16 state, table and weights,
     an f32 bias and int32 ids and parents, all contiguous, and raises on
-    anything else. ``prev_ids`` and ``parent_rows`` must be in range:
-    the kernel does not check them. ``decode_step_gathered.launches``
-    counts kernel launches."""
+    anything else. ``weights`` is ``prepare_gate_weights(cell_w, E)``,
+    made once per decode; without it each call prepares it.
+    ``prev_ids`` and ``parent_rows`` must be in range: the kernel does
+    not check them. ``decode_step_gathered.launches`` counts kernel
+    launches."""
     if h.device.type == "cpu":
         return decode_step_gathered_ref(
             cell_w, cell_b, h2g_w, prev_ids, parent_rows, emb_table, h, c,
             scene, H, W, forget_bias)
     fn = "decode_step_gathered"
-    dev, HW, NK, D, C = _check_state(fn, h, c, scene, h2g_w, H, W,
-                                     prev_ids, parent_rows)
-    E = emb_table.shape[-1]
-    bf = torch.bfloat16
-    _require(E % 8 == 0, fn, f"E={E} must be a multiple of 8")
-    _check_cuda(fn, "emb_table", emb_table, bf, (HW, HW, E), dev)
-    _check_cuda(fn, "cell_w", cell_w, bf, (9 * (E + D), 4 * D), dev)
-    _check_cuda(fn, "cell_b", cell_b, torch.float32, (4 * D,), dev)
+    dev, _, NK, D, C = _check_state(fn, h, c, scene, h2g_w, H, W,
+                                    prev_ids, parent_rows)
+    weights = _check_k1_gate(fn, cell_w, cell_b, emb_table, weights, H, W, D,
+                             dev)
     from multiverse_torch.ops._build import check, load_library
 
     lib = load_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    h2 = torch.empty((NK * HW, D), dtype=bf, device=dev)
-    h_out = torch.empty((NK * HW, D), dtype=bf, device=dev)
-    c_out = torch.empty((NK * HW, D), dtype=bf, device=dev)
-    check(lib, lib.mv_gnn_attention(
-        parent_rows.data_ptr(), h.data_ptr(),
-        None if scene is None else scene.data_ptr(), h2.data_ptr(),
-        NK, H, W, D, C, stream), "gnn_attention")
-    check(lib, lib.mv_gate_lstm(
-        prev_ids.data_ptr(), parent_rows.data_ptr(), emb_table.data_ptr(),
-        h2.data_ptr(), c.data_ptr(), cell_w.data_ptr(), cell_b.data_ptr(),
-        h_out.data_ptr(), c_out.data_ptr(), NK, H, W, D, E,
-        float(forget_bias), stream), "gate_lstm")
-    logits = _readout_launch(lib, check, h_out, h2g_w, NK, H, W, D, stream)
+    h2 = _attention_launch(lib, check, parent_rows, h, scene, NK, H, W, D, C)
+    h_out, c_out = _gate_launch(lib, check, weights, cell_b, prev_ids,
+                                parent_rows, emb_table, h2, c, NK, H, W, D,
+                                forget_bias)
+    logits = _readout_launch(lib, check, h_out, h2g_w, NK, H, W, D)
     decode_step_gathered.launches += 1
     return h_out, c_out, logits
 
 
 decode_step_gathered.launches = 0
+
+
+def gate_input_bf16(parent_rows, h, scene, H: int, W: int) -> torch.Tensor:
+    """K1's attention launch alone: h2 = bf16(h + agg) [NK*HW, D] (see
+    :func:`gate_input_bf16_ref`). CPU tensors run the plain version.
+    ``gate_input_bf16.launches`` counts kernel launches."""
+    if h.device.type == "cpu":
+        return gate_input_bf16_ref(parent_rows, h, scene, H, W)
+    fn = "gate_input_bf16"
+    _, _, NK, D, C = _check_state(fn, h, None, scene, None, H, W,
+                                  parent_rows=parent_rows)
+    from multiverse_torch.ops._build import check, load_library
+
+    h2 = _attention_launch(load_library(), check, parent_rows, h, scene, NK,
+                           H, W, D, C)
+    gate_input_bf16.launches += 1
+    return h2
+
+
+gate_input_bf16.launches = 0
+
+
+def gate_lstm_bf16(cell_w, cell_b, prev_ids, parent_rows, emb_table, h2, c,
+                   H: int, W: int, forget_bias: float = 1.0,
+                   weights: Optional[GateWeights] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's gate launch alone, on a given bf16 h2 [NK*HW, D] (see
+    :func:`gate_lstm_bf16_ref`). CPU tensors run the plain version; CUDA
+    tensors take what :func:`decode_step_gathered` takes and raise on
+    anything else. ``gate_lstm_bf16.launches`` counts kernel launches."""
+    if h2.device.type == "cpu":
+        return gate_lstm_bf16_ref(cell_w, cell_b, prev_ids, parent_rows,
+                                  emb_table, h2, c, H, W, forget_bias)
+    fn = "gate_lstm_bf16"
+    dev, _, NK, D, _ = _check_state(fn, c, c, None, None, H, W, prev_ids,
+                                    parent_rows)
+    _check_cuda(fn, "h2", h2, torch.bfloat16, (NK * H * W, D), dev)
+    weights = _check_k1_gate(fn, cell_w, cell_b, emb_table, weights, H, W, D,
+                             dev)
+    from multiverse_torch.ops._build import check, load_library
+
+    out = _gate_launch(load_library(), check, weights, cell_b, prev_ids,
+                       parent_rows, emb_table, h2, c, NK, H, W, D,
+                       forget_bias)
+    gate_lstm_bf16.launches += 1
+    return out
+
+
+gate_lstm_bf16.launches = 0
+
+
+def class_readout(h_out: torch.Tensor, h2g_w: torch.Tensor, H: int,
+                  W: int) -> torch.Tensor:
+    """The readout launch alone: logits [NK*HW, 1] f32 of bf16 h'
+    [NK*HW, D] and h2g_w [D, >=9] (see :func:`class_readout_ref`). CPU
+    tensors run the plain version. ``class_readout.launches`` counts
+    kernel launches."""
+    if h_out.device.type == "cpu":
+        return class_readout_ref(h_out, h2g_w, H, W)
+    fn = "class_readout"
+    _, _, NK, D, _ = _check_state(fn, h_out, None, None, h2g_w, H, W)
+    from multiverse_torch.ops._build import check, load_library
+
+    logits = _readout_launch(load_library(), check, h_out, h2g_w, NK, H, W, D)
+    class_readout.launches += 1
+    return logits
+
+
+class_readout.launches = 0
 
 
 def gate_input_q8(parent_rows, h, scene, H, W,
@@ -665,8 +835,7 @@ def decode_step_gathered_q8(
     h_out, c_out = _gate_lstm_q8_launch(lib, check, quant, cell_b, prev_ids,
                                         parent_rows, h2_q, c, NK, H, W, D,
                                         forget_bias)
-    logits = _readout_launch(lib, check, h_out, h2g_w, NK, H, W, D,
-                             torch.cuda.current_stream(dev).cuda_stream)
+    logits = _readout_launch(lib, check, h_out, h2g_w, NK, H, W, D)
     decode_step_gathered_q8.launches["int8a" if attn_q8 else "int8"] += 1
     return h_out, c_out, logits
 
@@ -743,12 +912,14 @@ def decode_step(
     H: int,
     W: int,
     forget_bias: float = 1.0,
+    weights: Optional[GateWeights] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K8: the fused step without the beam gather (see
     :func:`decode_step_ref` for the operands). CPU tensors run the plain
     version; CUDA tensors run K1's launches with identity parents and
     one embedding row per state row (bf16 state, embeddings and
     weights, f32 bias, all contiguous; anything else raises).
+    ``weights``: ``prepare_gate_weights(cell_w, E)``, or made per call.
     ``decode_step.launches`` counts kernel launches."""
     if h.device.type == "cpu":
         return decode_step_ref(cell_w, cell_b, h2g_w, emb, h, c, scene, H, W,
@@ -756,27 +927,15 @@ def decode_step(
     fn = "decode_step"
     dev, HW, N, D, C = _check_state(fn, h, c, scene, h2g_w, H, W)
     E = emb.shape[-1]
-    bf = torch.bfloat16
-    _require(E % 8 == 0, fn, f"E={E} must be a multiple of 8")
-    _check_cuda(fn, "emb", emb, bf, (N * HW, E), dev)
-    _check_cuda(fn, "cell_w", cell_w, bf, (9 * (E + D), 4 * D), dev)
-    _check_cuda(fn, "cell_b", cell_b, torch.float32, (4 * D,), dev)
+    _check_cuda(fn, "emb", emb, torch.bfloat16, (N * HW, E), dev)
+    weights = _gate_weights(fn, cell_w, cell_b, weights, E, D, dev)
     from multiverse_torch.ops._build import check, load_library
 
     lib = load_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    h2 = torch.empty((N * HW, D), dtype=bf, device=dev)
-    h_out = torch.empty((N * HW, D), dtype=bf, device=dev)
-    c_out = torch.empty((N * HW, D), dtype=bf, device=dev)
-    check(lib, lib.mv_gnn_attention(
-        None, h.data_ptr(), None if scene is None else scene.data_ptr(),
-        h2.data_ptr(), N, H, W, D, C, stream), "gnn_attention")
-    check(lib, lib.mv_gate_lstm(
-        None, None, emb.data_ptr(), h2.data_ptr(), c.data_ptr(),
-        cell_w.data_ptr(), cell_b.data_ptr(), h_out.data_ptr(),
-        c_out.data_ptr(), N, H, W, D, E, float(forget_bias), stream),
-        "gate_lstm")
-    logits = _readout_launch(lib, check, h_out, h2g_w, N, H, W, D, stream)
+    h2 = _attention_launch(lib, check, None, h, scene, N, H, W, D, C)
+    h_out, c_out = _gate_launch(lib, check, weights, cell_b, None, None, emb,
+                                h2, c, N, H, W, D, forget_bias)
+    logits = _readout_launch(lib, check, h_out, h2g_w, N, H, W, D)
     decode_step.launches += 1
     return h_out, c_out, logits
 
@@ -797,6 +956,7 @@ def decode_step_v2(
     H: int,
     W: int,
     forget_bias: float = 1.0,
+    weights: Optional[GateWeights] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K9: K8 with the embedding's gate contribution from the tables of
     :func:`build_emb_gates_tables` (see :func:`decode_step_v2_ref`). CPU
@@ -804,7 +964,8 @@ def decode_step_v2(
     gate launch over h2 alone with the tables in its epilogue, and K1's
     readout with h2g laid out as [D, 9] (bf16 state, weights and tables,
     f32 bias, int32 ids, all contiguous; anything else raises). ``ids``
-    must be in range: the kernel does not check them.
+    must be in range: the kernel does not check them. ``weights``:
+    ``prepare_gate_weights(cell_wh, 0)``, or made per call.
     ``decode_step_v2.launches`` counts kernel launches."""
     if h.device.type == "cpu":
         return decode_step_v2_ref(cell_wh, cell_b, h2g_w, ids, emb_bg,
@@ -813,8 +974,8 @@ def decode_step_v2(
     dev, HW, N, D, C = _check_state(fn, h, c, scene, None, H, W,
                                     prev_ids=ids)
     bf = torch.bfloat16
-    _check_cuda(fn, "cell_wh", cell_wh, bf, (9 * D, 4 * D), dev)
-    _check_cuda(fn, "cell_b", cell_b, torch.float32, (4 * D,), dev)
+    weights = _gate_weights(fn, cell_wh, cell_b, weights, 0, D, dev,
+                            "cell_wh")
     _check_cuda(fn, "emb_bg", emb_bg, bf, (H, W, 4 * D), dev)
     _check_cuda(fn, "emb_dev", emb_dev, bf, (HW, 25, 4 * D), dev)
     _require(h2g_w.dim() == 2 and h2g_w.shape[0] == 9 * D, fn,
@@ -824,19 +985,11 @@ def decode_step_v2(
     from multiverse_torch.ops._build import check, load_library
 
     lib = load_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    h2 = torch.empty((N * HW, D), dtype=bf, device=dev)
-    h_out = torch.empty((N * HW, D), dtype=bf, device=dev)
-    c_out = torch.empty((N * HW, D), dtype=bf, device=dev)
-    check(lib, lib.mv_gnn_attention(
-        None, h.data_ptr(), None if scene is None else scene.data_ptr(),
-        h2.data_ptr(), N, H, W, D, C, stream), "gnn_attention")
-    check(lib, lib.mv_gate_lstm_tables(
-        ids.data_ptr(), h2.data_ptr(), c.data_ptr(), cell_wh.data_ptr(),
-        cell_b.data_ptr(), emb_bg.data_ptr(), emb_dev.data_ptr(),
-        h_out.data_ptr(), c_out.data_ptr(), N, H, W, D, float(forget_bias),
-        stream), "gate_lstm_tables")
-    logits = _readout_launch(lib, check, h_out, h2g_cf, N, H, W, D, stream)
+    h2 = _attention_launch(lib, check, None, h, scene, N, H, W, D, C)
+    h_out, c_out = _gate_launch(lib, check, weights, cell_b, ids, None, None,
+                                h2, c, N, H, W, D, forget_bias, emb_bg,
+                                emb_dev)
+    logits = _readout_launch(lib, check, h_out, h2g_cf, N, H, W, D)
     decode_step_v2.launches += 1
     return h_out, c_out, logits
 
@@ -975,8 +1128,7 @@ def decode_step_gathered_q8dyn(
     h_out, c_out = _gate_lstm_q8dyn_launch(
         fn, lib, check, quant, cell_b, prev_ids, parent_rows, h2_f, r_p, c,
         NK, H, W, D, forget_bias)
-    logits = _readout_launch(lib, check, h_out, h2g_w, NK, H, W, D,
-                             torch.cuda.current_stream(dev).cuda_stream)
+    logits = _readout_launch(lib, check, h_out, h2g_w, NK, H, W, D)
     decode_step_gathered_q8dyn.launches += 1
     return h_out, c_out, logits
 

@@ -34,6 +34,12 @@ from multiverse_torch.ops.fused_decode import (
     decode_step_gathered_q8,
     decode_step_gathered_q8dyn,
 )
+from multiverse_torch.ops.gate_layout import (  # noqa: F401
+    gate_k_order,
+    gate_row_order,
+    kernel_rows,
+    prepare_gate_weights,
+)
 
 
 class DecodeQuant(NamedTuple):
@@ -43,10 +49,8 @@ class DecodeQuant(NamedTuple):
     emb_q: torch.Tensor    # [HW, H, W, E] int8
     w_q: torch.Tensor      # [9*Cin, 4D] int8
     t_c: torch.Tensor      # [1, 4D] f32 per-output-channel scales
-    # the gate launch's B operand (csrc/fused_decode_q8.cu): w_q with its
-    # rows in gate_k_order(E, D), transposed to [4D, 9*Cin], contiguous
-    # (each gate column's contraction contiguous, K-major as int8 wgmma
-    # takes it), its rows in the order of gate_row_order(D)
+    # the gate launch's B operand (ops/gate_layout.py): w_q with its rows
+    # in gate_k_order(E, D), in kernel_rows' layout [4D, 9*Cin]
     w_qt: torch.Tensor
 
 
@@ -63,34 +67,6 @@ class DecodeQuantDyn(NamedTuple):
     # rows in the order of gate_row_order(D) (as DecodeQuant.w_qt)
     w_eqt: torch.Tensor
     w_hqt: torch.Tensor
-
-
-def gate_row_order(D: int) -> torch.Tensor:
-    """The gate launch's order of the 4D gate columns: its row
-    32 * (d // 8) + 8 * u + d % 8 is column u * D + d (gate u of channel
-    d, u = i, g, f, o), so the four gates of each 8-channel chunk are 32
-    consecutive rows. A block's 4 * DT rows then hold all four gates of
-    its DT channels, and a wgmma accumulator's 8-column chunks 4c..4c+3
-    hold gates i, g, f, o of the same 8 channels. Kernel weights are
-    ``w.t()[gate_row_order(D)]``; ``argsort`` of it maps them back."""
-    n = torch.arange(4 * D)
-    return (n // 8) % 4 * D + n // 32 * 8 + n % 8
-
-
-def gate_k_order(E: int, D: int) -> torch.Tensor:
-    """The gate launch's order of the 9 * (E + D) contraction rows of
-    w_q (shift-major, [9, E + D]): the embedding channels of the nine
-    taps, then the recurrent channels of the nine taps, as K7's two
-    halves, so that no stage mixes the two sources and the recurrent
-    stages can be boxes of h2_q."""
-    k = torch.arange(9 * (E + D)).reshape(9, E + D)
-    return torch.cat([k[:, :E].reshape(-1), k[:, E:].reshape(-1)])
-
-
-def _kernel_rows(w: torch.Tensor) -> torch.Tensor:
-    """[K, 4D] int8 weights in the gate launch's layout: K-major
-    [4D, K], rows in gate_row_order, contiguous."""
-    return w.t()[gate_row_order(w.shape[1] // 4).to(w.device)].contiguous()
 
 
 def _quantize_table(emb_table: torch.Tensor
@@ -128,7 +104,7 @@ def quantize_decode_weights(cell_params: Mapping[str, torch.Tensor],
     s_k9 = torch.cat([s_emb, s_h]).repeat(9)                   # [9*Cin]
     w_q, t_c = _quantize_columns(kern * s_k9[:, None])
     return DecodeQuant(emb_q=emb_q, w_q=w_q, t_c=t_c.reshape(1, D4),
-                       w_qt=_kernel_rows(
+                       w_qt=kernel_rows(
                            w_q[gate_k_order(E, Cin - E).to(w_q.device)]))
 
 
@@ -150,8 +126,8 @@ def quantize_decode_weights_v2(cell_params: Mapping[str, torch.Tensor],
     w_hq, u_c = _quantize_columns(k9[:, E:, :].reshape(9 * D, D4))
     return DecodeQuantDyn(emb_q=emb_q, w_eq=w_eq, t_e=t_e.reshape(1, D4),
                           w_hq=w_hq, u_c=u_c.reshape(1, D4),
-                          w_eqt=_kernel_rows(w_eq),
-                          w_hqt=_kernel_rows(w_hq))
+                          w_eqt=kernel_rows(w_eq),
+                          w_hqt=kernel_rows(w_hq))
 
 
 def select_quant(decode_quant: str, cell_params: Mapping[str, torch.Tensor],
@@ -178,8 +154,9 @@ def make_decode_step(decode_quant: str,
                      emb_table: torch.Tensor) -> Callable:
     """The fused decode step of a tier, its operands prepared once per
     decode: ``step(cell_b, h2g_w, prev_ids, parent_rows, h, c, scene, H,
-    W) -> (h', c', logits)``. "none" binds K1's bf16 gate weights and
-    embedding rows to :func:`decode_step_gathered`; "int8", "int8a" and
+    W) -> (h', c', logits)``. "none" binds K1's bf16 gate weights, their
+    kernel layout (:func:`prepare_gate_weights`) and the embedding rows
+    to :func:`decode_step_gathered`; "int8", "int8a" and
     "int8_dyn" bind :func:`select_quant`'s operands to K2, K3 or K7. The
     one dispatch point of the beam and greedy decoders."""
     if decode_quant == "none":
@@ -188,11 +165,12 @@ def make_decode_step(decode_quant: str,
         HW = emb_table.shape[0]
         cell_w = cell_params["kernel"].to(bf).reshape(-1, D4).contiguous()
         emb_rows = emb_table.to(bf).reshape(HW, HW, -1).contiguous()
+        weights = prepare_gate_weights(cell_w, emb_rows.shape[-1])
 
         def step(cell_b, h2g_w, prev_ids, parent_rows, h, c, scene, H, W):
             return decode_step_gathered(cell_w, cell_b, h2g_w, prev_ids,
                                         parent_rows, emb_rows, h, c, scene,
-                                        H, W)
+                                        H, W, weights=weights)
         return step
     quant, q8_step = select_quant(decode_quant, cell_params, emb_table)
     return functools.partial(q8_step, quant)

@@ -2,17 +2,21 @@
 the same inputs: the fused decode step's K1 (bf16), K2, K3 and K7 (the
 int8, int8a and int8_dyn tiers), K8 (no gather) and K9 (embedding gates
 from tables), and the ConvLSTM cell K6, max abs error 2e-2, the
-tolerance of the JAX package's own kernel tests; K7's h2_f within 1e-5
-of the plain one but at pixels (at most 0.001 of them) whose difference
-is whole bf16 steps of their attention weights, its r_p the exact patch
-max of that h2_f, and its gate launch on the plain version's own
-inputs, bf16 c' equal in at least 0.999 of entries and none more than
-one bf16 step off, a gate shown to reject
-two planted faults; K2/K3's gate launch on the plain h2_q held to the
-same gate, shown to reject three planted layout faults; the training
-attention's K4 (forward) and K5 (backward), max abs error 2e-2 x max
-|plain| (K4 also 2e-2), and the decodes that must run them. A CUDA kernel has no CPU mode, so without a
-GPU every test here skips.
+tolerance of the JAX package's own kernel tests; K1's three launches
+alone (attention, gate, readout), its gate launch on the plain h2
+giving the plain gate's bf16 c' in at least 0.999 of entries, none more
+than one bf16 step of max(|c'|, C_FLOOR) off, a gate shown to reject
+three planted layout faults; K7's h2_f within 1e-5 of the plain one but
+at pixels (at most 0.001 of them) whose difference is whole bf16 steps
+of their attention weights, its r_p the exact patch max of that h2_f,
+and its gate launch on the plain version's own inputs, bf16 c' equal in
+at least 0.999 of entries and none more than one bf16 step off, a gate
+shown to reject two planted faults; K2/K3's gate launch on the plain
+h2_q held to the same gate, shown to reject three planted layout
+faults; the training attention's K4 (forward) and K5 (backward), max
+abs error 2e-2 x max |plain| (K4 also 2e-2), and the decodes that must
+run them. A CUDA kernel has no CPU mode, so without a GPU every test
+here skips.
 
 This file imports neither jax nor tests/conftest.py's fixtures, so it
 also runs where jax is not installed:
@@ -49,10 +53,16 @@ from multiverse_torch.ops import (
     quantize_decode_weights_v2,
 )
 from multiverse_torch.ops.fused_decode import (
+    class_readout,
+    class_readout_ref,
+    gate_input_bf16,
+    gate_input_bf16_ref,
     gate_input_q8,
     gate_input_q8_ref,
     gate_inputs_q8dyn,
     gate_inputs_q8dyn_ref,
+    gate_lstm_bf16,
+    gate_lstm_bf16_ref,
     gate_lstm_q8,
     gate_lstm_q8_ref,
     gate_lstm_q8dyn,
@@ -60,6 +70,7 @@ from multiverse_torch.ops.fused_decode import (
     h2f_weight_flips,
     row_scales_q8dyn_ref,
 )
+from multiverse_torch.ops.gate_layout import prepare_gate_weights
 from multiverse_torch.ops.fused_gnn import (
     gnn_dense_bwd,
     gnn_dense_bwd_ref,
@@ -71,6 +82,10 @@ from multiverse_torch.models import compute_loss, model_forward
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
+# K1's c' steps at max(|c'|, C_FLOOR): its f32 gate sums run in another
+# order than the plain product's, and where the two terms of c' cancel
+# that noise flips the sign of a c' near 0
+C_FLOOR = 2.0 ** -6
 
 
 @pytest.fixture
@@ -119,6 +134,67 @@ def test_kernel_matches_plain_version(cuda, NK, H, W, D, E, C):
         assert err <= TOL, (name, err)
 
 
+@pytest.mark.parametrize("NK,H,W,D,E,C", [
+    (6, 6, 8, 64, 16, 4),        # image-row boxes taller than the grid
+    (5, 7, 9, 32, 8, 0),         # gathered A, D = 32, no scene features
+    (40, 18, 32, 256, 32, 64),   # the beam decode's widths
+])
+def test_k1_launches_alone_match_their_plain_versions(cuda, NK, H, W, D, E,
+                                                      C):
+    """K1's attention launch within TOL of the plain h2; its gate launch
+    on the plain h2 giving the plain gate's c' in >= 0.999 of entries,
+    none more than one bf16 step of max(|c'|, C_FLOOR) off; its readout
+    within TOL."""
+    ops = {k: None if v is None else v.to(cuda)
+           for k, v in _operands(NK, H, W, D, E, C).items()}
+    before = (gate_input_bf16.launches, gate_lstm_bf16.launches,
+              class_readout.launches)
+    args = (ops["parent_rows"], ops["h"], ops["scene"], H, W)
+    h2 = gate_input_bf16(*args)
+    ref_h2 = gate_input_bf16_ref(*args)
+    assert h2.dtype == torch.bfloat16 and h2.shape == ref_h2.shape
+    assert _err(h2, ref_h2) <= TOL
+    gate = (ops["cell_b"], ops["prev_ids"], ops["parent_rows"],
+            ops["emb_table"], ref_h2, ops["c"], H, W)
+    h_k, c_k = gate_lstm_bf16(ops["cell_w"], *gate,
+                              weights=prepare_gate_weights(ops["cell_w"], E))
+    h_p, c_p = gate_lstm_bf16_ref(ops["cell_w"], *gate)
+    same, worst = c_agreement(c_k, c_p, C_FLOOR)
+    assert same >= 0.999 and worst <= 1, (same, worst)
+    assert _err(h_k, h_p) <= TOL
+    logits = class_readout(h_k, ops["h2g_w"], H, W)
+    torch.cuda.synchronize()
+    assert _err(logits, class_readout_ref(h_k, ops["h2g_w"], H, W)) <= TOL
+    assert (gate_input_bf16.launches, gate_lstm_bf16.launches,
+            class_readout.launches) == tuple(n + 1 for n in before)
+
+
+def test_k1_gate_rejects_planted_faults(cuda):
+    """K1's gate-launch gate (c' equal in >= 0.999 of entries, none more
+    than one bf16 step of max(|c'|, C_FLOOR) off) rejects three layout
+    faults of the gate
+    launch: the last K tile of 64 dropped, gates i and g swapped in one
+    8-channel chunk, tap s = 8 zeroed."""
+    H, W, D = 18, 32, 256
+    ops = {k: v.to(cuda) for k, v in _operands(40, H, W, D, 32, 64).items()}
+    h2 = gate_input_bf16_ref(ops["parent_rows"], ops["h"], ops["scene"], H,
+                             W)
+    gate = (ops["cell_b"], ops["prev_ids"], ops["parent_rows"],
+            ops["emb_table"], h2, ops["c"], H, W)
+    w = ops["cell_w"]
+    _, want = gate_lstm_bf16_ref(w, *gate)
+    Kdim = w.shape[0]
+    dropped, swapped, tap = w.clone(), w.clone(), w.clone()
+    dropped[(Kdim - 1) // 64 * 64:] = 0
+    swapped[:, 0:8], swapped[:, D:D + 8] = w[:, D:D + 8], w[:, 0:8]
+    tap[8 * (Kdim // 9):] = 0
+    for what, wf in (("last K tile", dropped), ("i/g chunk", swapped),
+                     ("tap 8", tap)):
+        _, got = gate_lstm_bf16_ref(wf, *gate)
+        same, worst = c_agreement(got, want, C_FLOOR)
+        assert same < 0.999 or worst > 1, (what, same, worst)
+
+
 def test_kernel_rejects_operands_it_does_not_take(cuda):
     ops = {k: None if v is None else v.to(cuda)
            for k, v in _operands(4, 6, 8, 32, 8, 4).items()}
@@ -128,6 +204,10 @@ def test_kernel_rejects_operands_it_does_not_take(cuda):
                      ("cell_w", ops["cell_w"].t())):
         with pytest.raises(ValueError, match=key):
             decode_step_gathered(**dict(ops, **{key: bad}), H=6, W=8)
+    # weights laid out for another embedding width
+    with pytest.raises(ValueError, match="weights"):
+        decode_step_gathered(**ops, H=6, W=8, weights=prepare_gate_weights(
+            ops["cell_w"][72:], 0))
     assert decode_step_gathered.launches == before
 
 
@@ -426,10 +506,19 @@ def bf16_ulps(a, b):
     return (ordered(a) - ordered(b)).abs()
 
 
-def c_agreement(got, want):
-    """(share of bf16 c' entries equal, max bf16 steps apart)."""
+def c_agreement(got, want, floor: float = 0.0):
+    """(share of bf16 c' entries equal, max bf16 steps apart); with a
+    ``floor``, the steps of max(|c'|, floor), so that noise flipping the
+    sign of a c' near 0 counts as what it is."""
     ulps = bf16_ulps(got, want)
-    return float((ulps == 0).float().mean()), int(ulps.max())
+    if not floor:
+        return float((ulps == 0).float().mean()), int(ulps.max())
+    a, b = got.float(), want.float()
+    _, e = torch.frexp(torch.clamp_min(torch.maximum(a.abs(), b.abs()),
+                                       floor))
+    steps = (a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)
+    return float((ulps == 0).float().mean()), float(steps.max())
+
 
 
 def _q8dyn_operands(NK, H, W, D, E, C, device, seed=0):

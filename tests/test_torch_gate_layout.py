@@ -1,5 +1,6 @@
-"""The weight layout of the int8 gate launch (K2/K3's and K7's
-``gate_lstm_wgmma_kernel`` in csrc/fused_decode_q8.cu), on the CPU.
+"""The weight layout of the gate launch (``gate_lstm_wgmma_kernel`` in
+csrc/gate_wgmma.cuh: K2/K3's and K7's int8 form, K1's bf16 form) and
+the form of the readout launch, on the CPU.
 
 The kernel reads its B operand as ``w_qt`` (``w_eqt``, ``w_hqt`` for K7):
 K-major [4D, K] int8 whose rows are the gate columns in
@@ -12,7 +13,12 @@ tests replay that mapping in PyTorch, one tile at a time, and hold it to
 the plain gates exactly; they
 also hold the plain gate launch (``gate_lstm_q8_ref``), composed with the
 plain attention launch, to the plain step, and the K2/K3 plain step to
-the JAX package's Pallas kernel in interpret mode.
+the JAX package's Pallas kernel in interpret mode. For the bf16 launch
+the weights come from ``prepare_gate_weights`` ([4D, 9(E+D)] bf16, the
+same row and K orders) and the replay runs stage by stage (64 values a
+stage, the embedding half's last stage partly empty). The readout
+launch's tap-partials form, replayed band by band, equals the plain
+readout and gives the Pallas kernel's logits.
 """
 
 import jax.numpy as jnp
@@ -25,13 +31,17 @@ from multiverse_tpu.ops import pallas_decode as jpd
 from multiverse_torch.ops import _build
 from multiverse_torch.ops.fused_decode import (
     _im2col9,
+    class_readout_ref,
     decode_step_gathered_q8_ref,
+    gate_input_bf16_ref,
+    gate_lstm_bf16_ref,
     gate_input_q8_ref,
     gate_lstm_q8,
     gate_lstm_q8_ref,
     gate_lstm_q8dyn_ref,
     gate_inputs_q8dyn_ref,
 )
+from multiverse_torch.ops.gate_layout import prepare_gate_weights
 from multiverse_torch.ops.quant import (
     gate_k_order,
     gate_row_order,
@@ -245,3 +255,168 @@ def test_plain_gate_launch_tracks_the_pallas_step(attn_q8):
         np.testing.assert_allclose(np.asarray(j, np.float32).reshape(-1),
                                    t.float().numpy().reshape(-1),
                                    rtol=2e-2, atol=2e-2)
+
+
+# ------------------------------------------- the bf16 gate launch (K1 ...)
+
+def _bf16_operands(seed, NK=3, H=6, W=8, D=64, E=16, C=4):
+    rng = np.random.RandomState(seed)
+    HW = H * W
+    bf = torch.bfloat16
+    t = torch.from_numpy
+    return dict(
+        cell_w=t(rng.randn(9 * (E + D), 4 * D).astype(np.float32)
+                 * 0.05).to(bf),
+        cell_b=t(rng.randn(4 * D).astype(np.float32) * 0.3),
+        h2g_w=t(rng.randn(D, 9).astype(np.float32) * 0.1).to(bf),
+        prev_ids=t(rng.randint(0, HW, NK).astype(np.int32)),
+        parent_rows=t(rng.permutation(NK).astype(np.int32)),
+        emb_table=t(np.tanh(rng.randn(HW, HW, E)).astype(np.float32)).to(bf),
+        h=t(np.tanh(rng.randn(NK * HW, D)).astype(np.float32)).to(bf),
+        c=t(rng.randn(NK * HW, D).astype(np.float32)).to(bf),
+        scene=t(rng.rand(NK * HW, C).astype(np.float32)).to(bf),
+    ), H, W
+
+
+@pytest.mark.parametrize("D,E", [(32, 8), (64, 16), (64, 32), (96, 8)])
+def test_bf16_weight_layout_maps_back_to_cell_w(D, E):
+    """K1's bf16 gate weights: K-major [4D, 9(E+D)], rows in
+    gate_row_order, K columns in gate_k_order, the plain kernel's bits."""
+    o, _, _ = _bf16_operands(0, D=D, E=E)
+    w = prepare_gate_weights(o["cell_w"], E)
+    assert w.E == E and w.w_t.dtype == torch.bfloat16
+    assert w.w_t.shape == (4 * D, 9 * (E + D)) and w.w_t.is_contiguous()
+    inverse = torch.argsort(gate_row_order(D))
+    assert torch.equal(w.w_t[inverse], o["cell_w"][gate_k_order(E, D)].t())
+    # K9's h-only kernel: no embedding half, the taps in order
+    wh = prepare_gate_weights(o["cell_w"][9 * E:], 0)
+    assert torch.equal(wh.w_t[inverse], o["cell_w"][9 * E:].t())
+
+
+def _bf16_stage_gates(a_emb, a_rec, w_t, E, D, DT, NW):
+    """The bf16 gate launch's sums, replayed in f64 stage by stage: the
+    embedding half in stages of 64 values (its last stage partly empty,
+    its weights box reading on into the recurrent columns against zero
+    A), then the recurrent half from column 9E; each block's 4*DT
+    kernel rows split into consumer warpgroups of NW; put back where the
+    epilogue reads each accumulator chunk (the plain column order)."""
+    M, K = a_emb.shape[0], w_t.shape[1]
+    KE = 64
+    wz = torch.cat([w_t.double(), torch.zeros(4 * D, KE, dtype=torch.float64)],
+                   dim=1)
+    acc = torch.zeros(M, 4 * D, dtype=torch.float64)
+    for half, a, kb in ((0, a_emb, 0), (1, a_rec, 9 * E)):
+        n = a.shape[1]
+        az = torch.cat([a, torch.zeros(M, KE, dtype=torch.float64)], dim=1)
+        for k0 in range(0, n, KE):
+            a_st = az[:, k0:k0 + KE].clone()
+            a_st[:, max(0, n - k0):] = 0
+            b_st = wz[:, kb + k0:kb + k0 + KE]
+            assert kb + k0 + KE <= K + KE
+            acc += a_st @ b_st.t()
+    out = torch.full((M, 4 * D), float("nan"), dtype=torch.float64)
+    for d0 in range(0, D, DT):
+        for n_off in range(0, 4 * DT, NW):
+            for j in range(NW // 8):
+                u, d = j % 4, d0 + n_off // 4 + 8 * (j // 4)
+                col = 4 * d0 + n_off + 8 * j
+                out[:, u * D + d:u * D + d + 8] = acc[:, col:col + 8]
+    return out
+
+
+@pytest.mark.parametrize("D,E", [(32, 8), (64, 16), (128, 32)])
+def test_bf16_gates_through_the_kernel_layout_equal_the_plain_gate(D, E):
+    """K1's gate sums through the kernel's layout, its two K halves, its
+    64-value stages and its interleaved rows equal the plain product (in
+    f64, where only the order of the sums differs), and the LSTM update
+    on them gives the plain gate launch's h' and c' but for rounding."""
+    o, H, W = _bf16_operands(1, D=D, E=E)
+    NK, HW = o["prev_ids"].shape[0], H * W
+    h2 = gate_input_bf16_ref(o["parent_rows"], o["h"], o["scene"], H, W)
+    emb = o["emb_table"].reshape(HW, HW, E)[o["prev_ids"].long()].double()
+    a_emb = _im2col9(emb.reshape(NK, H, W, E))
+    a_rec = _im2col9(h2.double().reshape(NK, H, W, D))
+    plain = _im2col9(torch.cat([emb, h2.double().reshape(NK, HW, D)], dim=-1)
+                     .reshape(NK, H, W, -1)) @ o["cell_w"].double()
+    w = prepare_gate_weights(o["cell_w"], E)
+    want = gate_lstm_bf16_ref(o["cell_w"], o["cell_b"], o["prev_ids"],
+                              o["parent_rows"], o["emb_table"], h2, o["c"],
+                              H, W)
+    cp = o["c"].reshape(-1, HW, D)[o["parent_rows"].long()] \
+        .reshape(-1, D).float()
+    for DT, NW in Q8_TILES:
+        if D % DT:
+            continue
+        acc = _bf16_stage_gates(a_emb, a_rec, w.w_t, E, D, DT, NW)
+        torch.testing.assert_close(acc, plain, rtol=1e-12, atol=1e-12)
+        i, g, f, oo = torch.chunk(acc.float() + o["cell_b"], 4, dim=-1)
+        new_c = torch.sigmoid(f + 1.0) * cp + torch.sigmoid(i) * torch.tanh(g)
+        new_h = torch.tanh(new_c) * torch.sigmoid(oo)
+        for got, ref in ((new_h, want[0]), (new_c, want[1])):
+            torch.testing.assert_close(got.to(torch.bfloat16).float(),
+                                       ref.float(), rtol=1e-2, atol=1e-2)
+
+
+def _tap_partials(h_out, w, H, W, TR):
+    """The readout launch replayed: per band of TR image rows, the tap
+    partials P of the band and its one-row halo from each h' row once
+    (f32 weights), then the nine shifted sums in tap order."""
+    D = h_out.shape[-1]
+    NK = h_out.shape[0] // (H * W)
+    hr = h_out.float().reshape(NK, H, W, D)
+    ws = w[:, :9].float()
+    logits = torch.empty(NK, H, W)
+    for y0 in range(0, H, TR):
+        ya, yb = max(y0 - 1, 0), min(y0 + TR + 1, H)
+        P = hr[:, ya:yb] @ ws                     # [NK, rows, W, 9]
+        for y in range(y0, min(y0 + TR, H)):
+            acc = torch.zeros(NK, W)
+            for s in range(9):
+                yy, dx = y + s // 3 - 1, s % 3 - 1
+                if not 0 <= yy < H:
+                    continue
+                row = P[:, yy - ya, :, s]
+                if dx < 0:
+                    acc[:, 1:] += row[:, :-1]
+                elif dx > 0:
+                    acc[:, :-1] += row[:, 1:]
+                else:
+                    acc += row
+            logits[:, y] = acc
+    return logits.reshape(-1, 1)
+
+
+@pytest.mark.parametrize("TR", [6, 2, 1])
+def test_tap_partials_readout_equals_the_plain_readout(TR):
+    """The readout launch's form (tap partials of each band and its halo
+    rows, then the shifted sums) equals ``_readout`` in f32."""
+    o, H, W = _bf16_operands(2)
+    h_out = torch.tanh(o["h"].float() * 1.7).to(torch.bfloat16)
+    torch.testing.assert_close(_tap_partials(h_out, o["h2g_w"], H, W, TR),
+                               class_readout_ref(h_out, o["h2g_w"], H, W),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_tap_partials_readout_tracks_the_pallas_readout():
+    """On the new h' of the JAX package's bf16 step in interpret mode,
+    the plain readout (the launch's form) gives that kernel's logits."""
+    o, H, W = _bf16_operands(3, D=32, E=8)
+    NK, D, E = o["prev_ids"].shape[0], 32, 8
+    f32 = lambda t: np.asarray(t.float().numpy())  # noqa: E731
+    _, st, logits = jpd.decode_step_pallas_gathered(
+        {"kernel": jnp.asarray(f32(o["cell_w"]).reshape(3, 3, E + D, 4 * D)),
+         "bias": jnp.asarray(f32(o["cell_b"]))},
+        {"w": jnp.asarray(f32(o["h2g_w"]).T.reshape(3, 3, D, 1))},
+        jnp.asarray(o["prev_ids"].numpy()),
+        jnp.asarray(o["parent_rows"].numpy()),
+        jnp.asarray(f32(o["emb_table"]).reshape(H * W, H, W, E)),
+        JState(c=jnp.asarray(f32(o["c"]).reshape(NK, H, W, D)),
+               h=jnp.asarray(f32(o["h"]).reshape(NK, H, W, D))),
+        jnp.asarray(f32(o["scene"]).reshape(NK, H, W, -1)), H, W,
+        interpret=True)
+    h_new = torch.from_numpy(np.asarray(st.h, np.float32)).reshape(-1, D) \
+        .to(torch.bfloat16)
+    np.testing.assert_allclose(
+        np.asarray(logits, np.float32).reshape(-1),
+        _tap_partials(h_new, o["h2g_w"], H, W, 2).numpy().reshape(-1),
+        rtol=1e-3, atol=1e-3)
