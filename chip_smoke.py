@@ -94,7 +94,9 @@
    and mean |plain|; the same gate must reject planted faults (K4 out =
    0, K5 dnode = 0, dnode without the dedges^T term, dstates = 0) on
    both sets. Kernel, plain and SDPA (the library yardstick, with its
-   backend) medians and each launch's device time.
+   backend) medians; for K4 and K5 the profiler device time of each
+   launch, the events time, the wrapper's host enqueue time a call and
+   the share of the bound.
 6. Training phase: ``mvt-torch-train``'s own ``main`` with the published
    training flags (TRAINING.md, adadelta lr 0.3, soft grid labels, GNN
    and scene encoder, clip 10) plus ``--compute_dtype bfloat16``, batch
@@ -119,6 +121,12 @@ without CUDA it exits nonzero before printing anything.
 measures only the K1 shares of another checkout's library through the C
 interface it had before the wgmma bf16 gate launch (commit 44284ee), the
 numbers behind WMMA_H2_SAME and WMMA_C_SAME.
+
+    python3 chip_smoke.py --gnn-only
+
+builds the kernels and runs only the training-kernel phase (5.), with
+its gates; copied into another checkout, it reads that checkout's K4
+and K5 the same way.
 """
 
 from __future__ import annotations
@@ -396,9 +404,10 @@ def bound(ops, H, W, E, gate_type: str, attn_type: str,
     return roofline(nbytes, work)
 
 
-def launch_breakdown(what: str, fn, reps: int = 5) -> None:
+def launch_breakdown(what: str, fn, reps: int = 5) -> dict:
     """Prints the mean device time of each CUDA kernel one call of
-    ``fn`` launches (torch.profiler over ``reps`` calls)."""
+    ``fn`` launches (torch.profiler over ``reps`` calls) and returns
+    them, ms by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -407,14 +416,30 @@ def launch_breakdown(what: str, fn, reps: int = 5) -> None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    launches = {}
     for evt in prof.key_averages():
         us = getattr(evt, "device_time_total", 0)
         if us > 0 and evt.count >= reps:
-            # "void (anonymous namespace)::gate_lstm_kernel<...>(...)"
-            found = re.search(r"(\w+)(?:<[^>]*>)?\(", evt.key)
+            # "void (anonymous namespace)::gate_lstm_kernel<...>(...)": the
+            # template arguments tell apart the launches of one template
+            found = re.search(r"(\w+(?:<[^>]*>)?)\(", evt.key)
+            name = found.group(1) if found else evt.key
+            launches[name] = launches.get(name, 0.0) + us / reps / 1e3
             print("kernel phase %s: launch %s %.4f ms (%d per call)"
-                  % (what, found.group(1) if found else evt.key,
-                     us / reps / 1e3, evt.count // reps))
+                  % (what, name, launches[name], evt.count // reps))
+    return launches
+
+
+def host_enqueue_ms(fn, calls: int = 30) -> float:
+    """The wrapper's host time a call: ``calls`` calls enqueued with no
+    sync between them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return host_ms
 
 
 def check_close(what: str, out, ref) -> float:
@@ -796,13 +821,7 @@ def launch_rate(what: str, fn, ops: float, nbytes: float,
     ``kind`` operations over that type's peak) and its achieved rate."""
     ms = median_ms(fn, reps=30)
     dev_ms = device_ms(fn)
-    # the wrapper's host time a call: 30 calls enqueued with no sync
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(30):
-        fn()
-    host_ms = (time.perf_counter() - t0) / 30 * 1e3
-    torch.cuda.synchronize()
+    host_ms = host_enqueue_ms(fn)
     roof = roofline(nbytes, {kind: ops})
     if not dev_ms > 0:   # no device time in the trace: the events' instead
         print("kernel phase %s: the profiler shows no device time; the "
@@ -1433,7 +1452,20 @@ def gnn_kernel_phase(model, cfg, dev) -> dict:
               % (name, ms, plain_ms, "forward" if name == "K4"
                  else "backward", lib_ms, backend, bounds[name]["bound_ms"],
                  bounds[name]["bound_by"]))
-        launch_breakdown(name, fn)
+        per_launch = launch_breakdown(name, fn)
+        dev_ms = sum(per_launch.values())
+        if not dev_ms > 0:
+            print("training-kernel phase %s: the profiler shows no device "
+                  "time; the figures below use the events' median" % name)
+            dev_ms = ms
+        host_ms = host_enqueue_ms(fn)
+        print("training-kernel phase %s: %.4f ms events, %.4f ms device "
+              "(%s; events - device %.4f ms), host enqueue %.4f ms a call; "
+              "%.1f%% of the bound"
+              % (name, ms, dev_ms, ", ".join("%s %.4f" % kv for kv in
+                                             per_launch.items()),
+                 ms - dev_ms, host_ms,
+                 100 * bounds[name]["bound_ms"] / dev_ms))
     print("training-kernel phase: SDPA forward vs K4 max abs diff %.4g "
           "(bf16 output)" % lib_err)
     return stats
@@ -1685,6 +1717,9 @@ def main() -> int:
 
     cfg = flagship_config()
     model = Multiverse.init(cfg, seed=0, device=dev)
+    if sys.argv[1:2] == ["--gnn-only"]:
+        gnn_kernel_phase(model, cfg, dev)
+        return 0
     stats = kernel_phase(model, cfg, dev)
 
     inputs = inference.synthesize_multifuture_inputs(cfg, 32, seed=0)

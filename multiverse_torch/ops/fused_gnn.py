@@ -23,12 +23,23 @@ from typing import Optional, Tuple
 
 import torch
 
+from multiverse_torch.ops._build import check, load_library
 from multiverse_torch.ops.fused_decode import (
     _check_cuda,
     _neighbor_bias,
     _require,
     _softmax,
 )
+
+_lib = None
+
+
+def _library():
+    """The kernel library, looked up at the first launch."""
+    global _lib
+    if _lib is None:
+        _lib = load_library()
+    return _lib
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -84,10 +95,13 @@ def _check(fn: str, node, states, H, W):
     dev = node.device
     NHW, Dn = node.shape
     Ds = states.shape[-1]
-    _require(dev.type == "cuda", fn, f"unsupported device {dev}")
-    _require(NHW % (H * W) == 0, fn, "node rows must be a multiple of H*W")
-    _require(Dn % 2 == 0 and Ds % 2 == 0, fn,
-             f"widths Dn={Dn}, Ds={Ds} must be even")
+    if dev.type != "cuda" or NHW % (H * W) or Dn % 2 or Ds % 2:
+        # the messages are formatted only for a check that fails
+        _require(dev.type == "cuda", fn, f"unsupported device {dev}")
+        _require(NHW % (H * W) == 0, fn,
+                 "node rows must be a multiple of H*W")
+        _require(Dn % 2 == 0 and Ds % 2 == 0, fn,
+                 f"widths Dn={Dn}, Ds={Ds} must be even")
     bf = torch.bfloat16
     _check_cuda(fn, "node", node, bf, (NHW, Dn), dev)
     _check_cuda(fn, "states", states, bf, (NHW, Ds), dev)
@@ -104,9 +118,7 @@ def gnn_dense_fwd(node: torch.Tensor, states: torch.Tensor, H: int,
         return gnn_dense_fwd_ref(node, states, H, W)
     fn = "gnn_dense_fwd"
     dev, N, Dn, Ds = _check(fn, node, states, H, W)
-    from multiverse_torch.ops._build import check, load_library
-
-    lib = load_library()
+    lib = _library()
     out = torch.empty((node.shape[0], Ds), dtype=torch.float32, device=dev)
     check(lib, lib.mv_gnn_dense_fwd(
         node.data_ptr(), states.data_ptr(), out.data_ptr(), N, H, W, Dn, Ds,
@@ -129,16 +141,18 @@ def gnn_dense_bwd(node: torch.Tensor, states: torch.Tensor, g: torch.Tensor,
     fn = "gnn_dense_bwd"
     dev, N, Dn, Ds = _check(fn, node, states, H, W)
     _check_cuda(fn, "g", g, torch.float32, tuple(states.shape), dev)
-    from multiverse_torch.ops._build import check, load_library
-
-    lib = load_library()
+    lib = _library()
     NHW = node.shape[0]
+    # between the two launches: attn and dedges, [N*HW, 9] f32 each, and
+    # bf16(g)
     scratch = torch.empty((2, NHW, 9), dtype=torch.float32, device=dev)
+    g_c = torch.empty_like(states)
     dnode = torch.empty_like(node)
     dstates = torch.empty_like(states)
     check(lib, lib.mv_gnn_dense_bwd(
         node.data_ptr(), states.data_ptr(), g.data_ptr(),
-        scratch[0].data_ptr(), scratch[1].data_ptr(), dnode.data_ptr(),
+        scratch.data_ptr(), scratch.data_ptr() + NHW * 9 * 4,
+        g_c.data_ptr(), dnode.data_ptr(),
         dstates.data_ptr(), N, H, W, Dn, Ds,
         torch.cuda.current_stream(dev).cuda_stream), fn)
     gnn_dense_bwd.launches += 1

@@ -372,11 +372,24 @@ def _gnn_operands(N, H, W, D, C, device, seed=0):
     return (node.to(bf).to(device), h.to(bf).to(device), cot.to(device))
 
 
-@pytest.mark.parametrize("N,H,W,D,C", [
-    (3, 6, 8, 16, 4),          # small
+# the shapes of tests/test_torch_gnn_band.py, which pins the band layout
+# of these launches on the CPU: every edge of the band
+GNN_SHAPES = [
+    (3, 6, 8, 16, 4),          # small; Dn = 20, not a multiple of 8
     (2, 7, 9, 32, 0),          # odd grid, no scene features
     (20, 18, 32, 256, 64),     # the training decode's widths
-])
+    (2, 9, 16, 32, 8),         # the 9x16 grid of stride 4: W = 16
+    (2, 5, 33, 32, 8),         # W = 33: a tile of one pixel
+    (3, 1, 8, 16, 4),          # H = 1: both halo rows off the grid
+    (2, 2, 9, 16, 4),          # H = 2
+    (1, 6, 8, 32, 8),          # N = 1
+    (2, 6, 8, 16, 4),          # Dn = 20
+    (2, 5, 7, 18, 4),          # Ds = 18, Dn = 22
+    (1, 3, 70, 16, 4),         # W = 70: two column bands
+]
+
+
+@pytest.mark.parametrize("N,H,W,D,C", GNN_SHAPES)
 def test_gnn_kernels_match_plain_versions(cuda, N, H, W, D, C):
     node, states, g = _gnn_operands(N, H, W, D, C, cuda)
     before = (gnn_dense_fwd.launches, gnn_dense_bwd.launches)
@@ -395,6 +408,19 @@ def test_gnn_kernels_match_plain_versions(cuda, N, H, W, D, C):
         err = float((got.float() - want.float()).abs().max())
         # relative with no floor: dnode is often far below 1
         assert err <= TOL * float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("N,H,W,D,C", [(3, 6, 8, 16, 4),
+                                       (20, 18, 32, 256, 64)])
+def test_gnn_kernels_are_deterministic(cuda, N, H, W, D, C):
+    """No atomics: two calls on the same inputs agree bit for bit."""
+    node, states, g = _gnn_operands(N, H, W, D, C, cuda)
+    first = (gnn_dense_fwd(node, states, H, W),
+             *gnn_dense_bwd(node, states, g, H, W))
+    second = (gnn_dense_fwd(node, states, H, W),
+              *gnn_dense_bwd(node, states, g, H, W))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_gnn_kernels_reject_operands_they_do_not_take(cuda):
