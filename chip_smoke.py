@@ -111,6 +111,29 @@
    gradient within 2e-2 relative L2); prints buffered steps/s and
    examples/s, the device idle share over 5 steps and the top device
    operations of one step.
+7. SimAug phase: the training-kernel phase (5.) again at SimAug's
+   shapes, N = 36 (the multiview attack, batch 12 x 3 views) and N = 12
+   (its outer step), gates and planted faults included (run right after
+   phase 5, before any step is profiled); one multiview
+   attack step (``_attack_step_with_loss`` and the input gradient it
+   signs) at 36 rows through K4/K5 and through their plain versions on
+   the same weights, batch and draws at keep_prob 1 (per-example CE
+   within 1e-2 relative, the input gradient within 2e-2 relative L2,
+   the share of stepped features that differ printed);
+   ``mvt-torch-train-simaug``'s own ``main`` with TRAINING.md section
+   2's published flags plus ``--compute_dtype bfloat16`` (keep_prob
+   0.7), one epoch of synthetic 4-camera data (60 agents x 4 cameras,
+   48 val examples; ``synthesize_multiview_prepro``), an eval/save every
+   10 steps, on cuda: every loss finite, K4 and K5 each ran steps x 12
+   x 2 times (the attack's tower pass and the outer one), the evals' K1
+   evals x val batches x 12 times, both checkpoint directories hold npz
+   files and the best one decodes a batch through
+   ``run_multifuture_inference``. Then one outer step on one augmented
+   batch through K4/K5 and through their plain versions (loss within
+   1e-2, every gradient within 2e-2 relative L2); the multiview step's
+   buffered steps/s and examples/s, idle share and top device
+   operations; and the ``--adv_train`` PGD-30 step at batch 12: seconds
+   a step over 3 steps, K4 and K5 each 31 x 12 launches a step.
 
 Prints one JSON line describing the kernels, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero;
@@ -131,6 +154,7 @@ and K5 the same way.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -150,6 +174,7 @@ import torch
 from multiverse_torch import inference
 from multiverse_torch.cli import serve
 from multiverse_torch.cli import train as train_cli
+from multiverse_torch.cli import train_simaug as simaug_cli
 from multiverse_torch.config import MultiverseConfig
 from multiverse_torch.bridge import load_params_npz
 from multiverse_torch.data.dataset import (
@@ -157,7 +182,13 @@ from multiverse_torch.data.dataset import (
     read_data,
     synthesize_prepro,
 )
-from multiverse_torch.models import Multiverse
+from multiverse_torch.data.multiview import (
+    MultiviewDataset,
+    synthesize_multiview_prepro,
+)
+from multiverse_torch.geometry import one_hot_grid
+from multiverse_torch.models import Multiverse, simaug
+from multiverse_torch.models.simaug import SimAugConfig
 from multiverse_torch.ops import (
     ConvLSTMState,
     _build,
@@ -296,6 +327,25 @@ TRAIN_FLAGS = ["--batch_size", "20", "--num_epochs", "2", "--init_lr", "0.3",
                "--wd", "0.0001", "--save_period", "20",
                "--compute_dtype", "bfloat16", "--device", "cuda"]
 TRAIN_EXAMPLES, VAL_EXAMPLES = 400, 100
+# TRAINING.md section 2's published SimAug command (its --grid_strides is
+# --scene_grid_strides in both trainers) plus bf16, keep_prob at the
+# command's 0.7, one epoch of synthetic 4-camera data (SIMAUG_AGENTS
+# agents x 4 cameras; SIMAUG_VAL val examples) and an eval/save every
+# SIMAUG_SAVE_PERIOD steps
+SIMAUG_AGENTS, SIMAUG_VAL, SIMAUG_SAVE_PERIOD = 60, 48, 10
+SIMAUG_FLAGS = ["--batch_size", "12", "--num_epochs", "1", "--init_lr", "0.3",
+                "--multiview_train", "--multiview_exp", "3",
+                "--adv_use_fgsm", "--use_mixup", "--mixup_alpha", "1.0",
+                "--adv_epsilon", "0.1", "--double_weighting",
+                "--fl_gamma", "1.0", "--use_gnn", "--use_scene_enc",
+                "--scene_grid_strides", "2,4", "--use_grids", "1,0",
+                "--compute_dtype", "bfloat16",
+                "--save_period", str(SIMAUG_SAVE_PERIOD), "--device", "cuda"]
+# TRAINING.md section 2's PGD mode at the same batch and widths
+PGD_FLAGS = ["--batch_size", "12", "--init_lr", "0.3", "--adv_train",
+             "--adv_num_iter", "30", "--adv_step_size", "0.001",
+             "--use_gnn", "--use_scene_enc", "--scene_grid_strides", "2,4",
+             "--use_grids", "1,0", "--compute_dtype", "bfloat16"]
 # the README quick-start beam flags at the published widths
 QUICKSTART_FLAGS = ["--use_gnn", "--use_scene_enc", "--use_beam_search",
                     "--beam_size", "20", "--diverse_beam",
@@ -1357,10 +1407,11 @@ def gnn_bounds(node, states, H: int, W: int) -> dict:
     return out
 
 
-def gnn_kernel_phase(model, cfg, dev) -> dict:
-    """K4 and K5 against their plain versions at the training shape,
-    timed beside the plain versions and SDPA."""
-    sets, H, W = gnn_operands(model, cfg, dev)
+def gnn_kernel_phase(model, cfg, dev, N: int = 20) -> dict:
+    """K4 and K5 against their plain versions at N samples (20, the
+    training shape; SimAug's 36 and 12), timed beside the plain versions
+    and SDPA."""
+    sets, H, W = gnn_operands(model, cfg, dev, N)
     node, states, cot = sets["encoder"]
     print("training-kernel phase: N=%d, %dx%d, node %d, states %d"
           % (node.shape[0] // (H * W), H, W, node.shape[1], states.shape[1]))
@@ -1472,14 +1523,16 @@ def gnn_kernel_phase(model, cfg, dev) -> dict:
 
 
 class StepRecorder:
-    """Wraps ``make_train_step`` for ``mvt-torch-train``'s ``main``:
-    keeps every step's total loss on the device (no sync)."""
+    """Wraps a train-step factory (``make_train_step``,
+    ``make_simaug_train_step``) for a command's ``main``: keeps every
+    step's total loss on the device (no sync)."""
 
-    def __init__(self):
+    def __init__(self, make_step):
+        self.make_step = make_step
         self.losses = []
 
     def __call__(self, cfg, tx):
-        step = trainer.make_train_step(cfg, tx)
+        step = self.make_step(cfg, tx)
 
         def recorded(*args, **kw):
             parts = step(*args, **kw)
@@ -1494,14 +1547,28 @@ def device_busy_ms(prof) -> float:
                if evt.self_device_time_total > 0) / 1e3
 
 
+@contextlib.contextmanager
+def plain_gnn():
+    """K4/K5's wrappers replaced by their plain versions (on the card)."""
+    with mock.patch.object(fused_gnn, "gnn_dense_fwd", gnn_dense_fwd_ref), \
+            mock.patch.object(fused_gnn, "gnn_dense_bwd", gnn_dense_bwd_ref):
+        yield
+
+
 def grad_agreement(model, batch, cfg) -> None:
     """One train step's loss and gradients through K4/K5 and through
     their plain versions, on the same weights and card batch."""
     grads_k, parts_k = trainer.loss_and_grads(model, batch, cfg)
-    with mock.patch.object(fused_gnn, "gnn_dense_fwd", gnn_dense_fwd_ref), \
-            mock.patch.object(fused_gnn, "gnn_dense_bwd", gnn_dense_bwd_ref):
+    with plain_gnn():
         grads_p, parts_p = trainer.loss_and_grads(model, batch, cfg)
-    loss_k, loss_p = float(parts_k["total"]), float(parts_p["total"])
+    compare_step("train phase", grads_k, float(parts_k["total"]), grads_p,
+                 float(parts_p["total"]))
+
+
+def compare_step(what: str, grads_k, loss_k: float, grads_p,
+                 loss_p: float) -> None:
+    """A step's loss within 1e-2 relative and every gradient within
+    2e-2 relative L2 of the plain versions' step."""
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     worst, worst_name = 0.0, None
     for name, gp in grads_p.items():
@@ -1511,12 +1578,12 @@ def grad_agreement(model, batch, cfg) -> None:
             else float(gk.norm())
         if rel > worst:
             worst, worst_name = rel, name
-    print("train phase: kernel vs plain train step: loss %.6f vs %.6f "
+    print("%s: kernel vs plain train step: loss %.6f vs %.6f "
           "(rel %.3g); worst gradient rel L2 %.4g (%s)"
-          % (loss_k, loss_p, loss_rel, worst, worst_name))
+          % (what, loss_k, loss_p, loss_rel, worst, worst_name))
     if not loss_rel <= 1e-2 or not worst <= 2e-2:
-        raise AssertionError("the kernel train step disagrees with the "
-                             "plain one")
+        raise AssertionError("%s: the kernel train step disagrees with the "
+                             "plain one" % what)
 
 
 def train_phase(dev) -> dict:
@@ -1527,7 +1594,7 @@ def train_phase(dev) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         prepro = synthesize_prepro(os.path.join(tmp, "prepro"), cfg,
                                    TRAIN_EXAMPLES, VAL_EXAMPLES, seed=0)
-        rec = StepRecorder()
+        rec = StepRecorder(trainer.make_train_step)
         reset_launches()
         t0 = time.perf_counter()
         with mock.patch.object(train_cli, "make_train_step", rec):
@@ -1565,75 +1632,271 @@ def train_phase(dev) -> dict:
                                  f"{eval_batches} batches x {cfg.pred_len}")
         if not losses[-10:].mean() < losses[0]:
             raise AssertionError("train phase: the loss did not fall")
-        best_step = val_perf["best"]["step"]
-        ckpts = {sub: list_steps(os.path.join(run, sub))
-                 for sub in ("save", "best")}
-        print("train phase: checkpoints %s, best step %d" % (
-            {k: [s for s, _ in v] for k, v in ckpts.items()}, best_step))
-        if not ckpts["save"] or not ckpts["best"]:
-            raise AssertionError("train phase: a checkpoint directory is "
-                                 "empty")
-        model = load_params_npz(ckpts["best"][-1][1])
-
-        # the best checkpoint decodes through the offline path
-        beam_cfg = cfg.replace(use_beam_search=True, beam_size=20,
-                               diverse_beam=True, fix_num_timestep=1)
-        inputs = inference.synthesize_multifuture_inputs(beam_cfg, 16,
-                                                         seed=1)
-        out, prob = inference.run_multifuture_inference(
-            model, inputs, beam_cfg, batch_size=16, device=dev)
-        check_pickles(out, prob, inputs, beam_cfg)
-        print("train phase: the best checkpoint decoded 16 trajectories "
-              "(K=20 beams)")
+        model = best_checkpoint_decodes("train phase", run,
+                                        val_perf["best"]["step"], cfg, dev)
 
         ds = read_data(prepro, "train", cfg)
         batch = batch_to_device(ds.make_batch(list(range(20)))[0], dev)
     model = model.to(dev).requires_grad_(True)
     grad_agreement(model, batch, cfg)
 
-    # buffered throughput: 20 steps, one sync at the end
     tx = trainer.build_optimizer(cfg, TRAIN_EXAMPLES)
     opt_state = tx.init(dict(model.named_parameters()))
     step = trainer.make_train_step(cfg, tx)
+    step_throughput("train phase", lambda: step(model, opt_state, batch),
+                    cfg.batch_size)
+    return launches
+
+
+# ---------------------------------------------------------------- SimAug
+
+
+def simaug_config(flags=SIMAUG_FLAGS) -> SimAugConfig:
+    """The configuration ``mvt-torch-train-simaug`` makes of ``flags``."""
+    return simaug_cli.simaug_config_from_args(
+        simaug_cli.build_parser().parse_args(["prepro", "out", "m",
+                                              *flags]))
+
+
+def attack_agreement(model, cfg, batch) -> None:
+    """One multiview attack step (``_attack_step_with_loss``, and the
+    input gradient it signs) at N*M rows through K4/K5 and through their
+    plain versions, on the same weights, batch and draws at keep_prob 1:
+    the per-example CE within 1e-2 relative, the input gradient within
+    2e-2 relative L2; prints the share of stepped features that
+    differ."""
+    cfg = cfg.replace(keep_prob=1.0)
+    params = simaug._detached(model)
+    i = cfg.active_scales[0]
+    h, w = cfg.scene_grids[i]
+    N, M = batch.pred_grid_class_extra.shape[:2]
+    scene = simaug.scene_input_of(batch, cfg)
+    draws = simaug.multiview_draws(cfg, simaug.StepRng(11, scene.device),
+                                   scene.shape, M)
+    start = scene.repeat_interleave(M, dim=0) + draws.noise
+    eps = cfg.adv_epsilon
+    lower = torch.clamp(start - eps, -1.0, 1.0)
+    upper = torch.clamp(start + eps, -1.0, 1.0)
+    onehot = one_hot_grid(batch.obs_grid_class[:, i], h, w) \
+        .repeat_interleave(M, dim=0)
+    target = batch.pred_grid_class_extra.reshape(N * M, -1)
+
+    def run():
+        grad, _ = simaug._input_grad(params, start, onehot, target, cfg)
+        stepped, ce = simaug._attack_step_with_loss(
+            params, start, onehot, target, cfg, eps, lower, upper)
+        return grad, ce, stepped
+
+    before = (gnn_dense_fwd.launches, gnn_dense_bwd.launches)
+    grad_k, ce_k, stepped_k = run()
+    torch.cuda.synchronize()
+    ran = (gnn_dense_fwd.launches - before[0],
+           gnn_dense_bwd.launches - before[1])
+    with plain_gnn():
+        grad_p, ce_p, stepped_p = run()
+    ce_rel = float(((ce_k - ce_p).abs() / ce_p.abs()).max())
+    grad_rel = float((grad_k - grad_p).norm() / grad_p.norm())
+    differ = float((stepped_k != stepped_p).float().mean())
+    print("simaug phase: attack step at %d rows (N=%d x M=%d), kernel vs "
+          "plain: per-example CE max rel %.3g (limit 1e-2), input gradient "
+          "rel L2 %.4g (limit 2e-2), |grad| max %.4g; stepped features "
+          "differing %.6f; K4/K5 launches %s (2 passes x %d)"
+          % (N * M, N, M, ce_rel, grad_rel, float(grad_p.abs().max()),
+             differ, ran, cfg.pred_len))
+    if ran != (2 * cfg.pred_len,) * 2:
+        raise AssertionError(f"simaug phase: the attack step ran K4/K5 "
+                             f"{ran} times")
+    if not ce_rel <= 1e-2 or not grad_rel <= 2e-2:
+        raise AssertionError("simaug phase: the attack step through K4/K5 "
+                             "disagrees with the plain one")
+
+
+def outer_agreement(model, cfg, batch) -> None:
+    """One outer SimAug step on one augmented batch (the augmentation
+    made once, through the kernels), its loss and gradients through
+    K4/K5 and through their plain versions."""
+    draws = simaug.step_draws(cfg, batch, 21)
+    scene, onehot, mix = simaug.augment(model, batch, cfg, draws)
+
+    def loss_and_grads():
+        total, _ = simaug.tower_loss(model, batch, cfg, scene, onehot, mix,
+                                     draws.dropout)
+        return trainer.gradients(model, total), float(total.detach())
+
+    grads_k, loss_k = loss_and_grads()
+    with plain_gnn():
+        grads_p, loss_p = loss_and_grads()
+    compare_step("simaug phase", grads_k, loss_k, grads_p, loss_p)
+
+
+def simaug_gnn_shapes(model, flagship, dev) -> None:
+    """Phase 7's kernel part: the training-kernel phase at SimAug's
+    shapes, the multiview attack's N*M samples and the outer step's N,
+    gates and planted faults included."""
+    cfg = simaug_config()
+    for n in (cfg.batch_size * cfg.multiview_max_num, cfg.batch_size):
+        gnn_kernel_phase(model, flagship, dev, N=n)
+
+
+def simaug_phase(model, dev) -> dict:
+    """SimAug on the card: the attack's input gradient and an outer
+    step through K4/K5 against their plain versions,
+    mvt-torch-train-simaug end to end with TRAINING.md's published flags,
+    and the multiview and PGD-30 steps' throughput. Returns the launches
+    of K4, K5 and the evals' K1 in the command's run."""
+    cfg = simaug_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        prepro = synthesize_multiview_prepro(
+            os.path.join(tmp, "prepro"), cfg, SIMAUG_AGENTS, SIMAUG_VAL,
+            seed=0)
+        ds = MultiviewDataset(read_data(prepro, "train", cfg), cfg,
+                              cfg.multiview_max_num)
+        batch = batch_to_device(
+            ds.make_batch(list(range(cfg.batch_size)))[0], dev)
+        attack_agreement(model, cfg, batch)
+
+        rec = StepRecorder(simaug.make_simaug_train_step)
+        reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(simaug_cli, "make_simaug_train_step", rec):
+            simaug_cli.main([prepro, os.path.join(tmp, "out"), "simaug",
+                             *SIMAUG_FLAGS])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = len(rec.losses)
+        losses = torch.stack(rec.losses).cpu().numpy()
+        launches = {"K4": gnn_dense_fwd.launches,
+                    "K5": gnn_dense_bwd.launches,
+                    "K1": decode_step_gathered.launches}
+        run = os.path.join(tmp, "out", "simaug", "00")
+        with open(os.path.join(run, "val_perf.json")) as f:
+            best_step = json.load(f)["best"]["step"]
+        num_examples = SIMAUG_AGENTS * 4
+        want_steps = -(-num_examples // cfg.batch_size) * cfg.num_epochs
+        evals = -(-want_steps // SIMAUG_SAVE_PERIOD)
+        eval_batches = evals * -(-SIMAUG_VAL // cfg.batch_size)
+        # every step: the attack's tower pass and the outer one, each
+        # with one K4 and one K5 a decode step
+        want_gnn = steps * cfg.pred_len * 2
+        print("simaug phase: mvt-torch-train-simaug %d steps in %.3f s "
+              "(main, evals and saves included); first loss %.4f, last 5 "
+              "mean %.4f; launches K4 %d, K5 %d (steps x %d x 2 = %d), "
+              "eval K1 %d (%d evals x %d batches x %d)"
+              % (steps, wall, losses[0], losses[-5:].mean(),
+                 launches["K4"], launches["K5"], cfg.pred_len, want_gnn,
+                 launches["K1"], evals, eval_batches // evals,
+                 cfg.pred_len))
+        if steps != want_steps or not np.isfinite(losses).all():
+            raise AssertionError(f"simaug phase: {steps} steps, losses "
+                                 f"finite: {np.isfinite(losses).all()}")
+        if launches["K4"] != want_gnn or launches["K5"] != want_gnn:
+            raise AssertionError(f"simaug phase: K4/K5 ran {launches['K4']}/"
+                                 f"{launches['K5']} times, not {want_gnn}")
+        if launches["K1"] != eval_batches * cfg.pred_len:
+            raise AssertionError(f"simaug phase: the evals' K1 ran "
+                                 f"{launches['K1']} times for "
+                                 f"{eval_batches} batches x {cfg.pred_len}")
+        trained = best_checkpoint_decodes("simaug phase", run, best_step,
+                                          cfg, dev)
+    trained = trained.to(dev).requires_grad_(True)
+    outer_agreement(trained, cfg, batch)
+
+    tx = trainer.build_optimizer(cfg, num_examples)
+    opt_state = tx.init(dict(trained.named_parameters()))
+    step = simaug.make_simaug_train_step(cfg, tx)
+    seeds = iter(range(1000, 2000))
+    step_throughput(
+        "simaug phase (multiview step)",
+        lambda: step(trained, opt_state, batch, next(seeds)), cfg.batch_size)
+
+    pgd = simaug_config(PGD_FLAGS)
+    pgd_step = simaug.make_simaug_train_step(pgd, tx)
+    pgd_step(trained, opt_state, batch, 0)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for k in range(3):
+        pgd_step(trained, opt_state, batch, k + 1)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / 3
+    ran = (gnn_dense_fwd.launches, gnn_dense_bwd.launches)
+    want = 3 * (pgd.adv_num_iter + 1) * pgd.pred_len
+    print("simaug phase: PGD-%d step at batch %d: %.4f s a step (3 steps, "
+          "one sync); K4/K5 launches %s, %d x %d a step"
+          % (pgd.adv_num_iter, pgd.batch_size, per_step, ran,
+             pgd.adv_num_iter + 1, pgd.pred_len))
+    if ran != (want, want):
+        raise AssertionError(f"simaug phase: the PGD step ran K4/K5 {ran} "
+                             f"times, not {want}")
+    return launches
+
+
+def best_checkpoint_decodes(what: str, run: str, best_step: int, cfg,
+                            dev) -> Multiverse:
+    """Both checkpoint directories of a training run hold npz files,
+    and the best checkpoint decodes 16 trajectories through the offline
+    path (K=20 diverse beams). Returns the best checkpoint's model."""
+    ckpts = {sub: list_steps(os.path.join(run, sub))
+             for sub in ("save", "best")}
+    print("%s: checkpoints %s, best step %d" % (
+        what, {k: [s for s, _ in v] for k, v in ckpts.items()}, best_step))
+    if not ckpts["save"] or not ckpts["best"]:
+        raise AssertionError("%s: a checkpoint directory is empty" % what)
+    model = load_params_npz(ckpts["best"][-1][1])
+    beam_cfg = cfg.replace(use_beam_search=True, beam_size=20,
+                           diverse_beam=True, diverse_gamma=0.01,
+                           fix_num_timestep=1)
+    inputs = inference.synthesize_multifuture_inputs(beam_cfg, 16, seed=1)
+    out, prob = inference.run_multifuture_inference(
+        model, inputs, beam_cfg, batch_size=16, device=dev)
+    check_pickles(out, prob, inputs, beam_cfg)
+    print("%s: the best checkpoint decoded 16 trajectories (K=20 beams)"
+          % what)
+    return model
+
+
+def step_throughput(what: str, run_step, batch_size: int) -> None:
+    """Buffered steps/s and examples/s of ``run_step`` (3 warm-up steps,
+    then 20 with one sync at the end), the device idle share over 5
+    steps and the top device operations of one step (torch.profiler)."""
     for _ in range(3):
-        step(model, opt_state, batch)
+        run_step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     n_steps = 20
     for _ in range(n_steps):
-        step(model, opt_state, batch)
+        run_step()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    print("train phase: %.2f steps/s, %.1f examples/s buffered (%d steps "
-          "of batch %d, one sync)" % (n_steps / dt, n_steps * 20 / dt,
-                                      n_steps, 20))
+    print("%s: %.2f steps/s, %.1f examples/s buffered (%d steps of batch "
+          "%d, one sync)" % (what, n_steps / dt, n_steps * batch_size / dt,
+                             n_steps, batch_size))
 
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(5):
-            step(model, opt_state, batch)
+            run_step()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     busy = device_busy_ms(prof)
-    print("train phase: device idle share over 5 steps %.4f (busy %.2f ms "
-          "of %.2f ms)" % (1 - busy / window_ms, busy, window_ms))
+    print("%s: device idle share over 5 steps %.4f (busy %.2f ms of %.2f "
+          "ms)" % (what, 1 - busy / window_ms, busy, window_ms))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step(model, opt_state, batch)
+        run_step()
         torch.cuda.synchronize()
     total = device_busy_ms(prof)
     top = sorted((e for e in prof.key_averages()
                   if e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)[:10]
-    print("train phase: one step's device time %.3f ms; top operations:"
-          % total)
+    print("%s: one step's device time %.3f ms; top operations:"
+          % (what, total))
     for e in top:
         print("  %8.3f ms %5.1f%% x%-4d %s" % (
             e.self_device_time_total / 1e3,
             100 * e.self_device_time_total / 1e3 / total, e.count,
             e.key[:100]))
-    return launches
 
 
 def wmma_shares(tree: str) -> None:
@@ -1701,6 +1964,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    start = time.perf_counter()
+
+    def elapsed(what: str) -> None:
+        print("chip_smoke: %s done, %.1f s since the start"
+              % (what, time.perf_counter() - start))
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1731,6 +2000,11 @@ def main() -> int:
         obs_scene=inputs.obs_scene[:16],
         pred_lengths=inputs.pred_lengths[:16])
     stats.update(gnn_kernel_phase(model, cfg, dev))
+    # phase 7's kernel part runs here, beside phase 5: torch.profiler's
+    # per-launch reads come back empty after a step has been profiled
+    # without acc_events (the train phase's)
+    simaug_gnn_shapes(model, cfg, dev)
+    elapsed("kernel phases")
 
     # the paths: each resets its kernels' counts before it runs and reads
     # them after; the pathless kernels' counts span all of them
@@ -1755,9 +2029,15 @@ def main() -> int:
         QUICKSTART_FLAGS + ["--compute_dtype", "bfloat16", "--decode_quant",
                             "int8_dyn"], dev, greedy=False, n_requests=32,
         tier="int8_dyn", servers=SERVERS[:1])
+    elapsed("offline and serve phases")
     trained = train_phase(dev)
     launches["K1"] += trained["K1"]
     launches["K4"], launches["K5"] = trained["K4"], trained["K5"]
+    elapsed("train phase")
+    simaug_run = simaug_phase(model, dev)
+    for k in ("K1", "K4", "K5"):
+        launches[k] += simaug_run[k]
+    elapsed("simaug phase")
     for k, fn in PATHLESS.items():
         launches[k] = fn.launches
     print("main path launches of K6, K8, K9 (no path of the port or of the "

@@ -1,8 +1,8 @@
 """multiverse_torch — the PyTorch / CUDA port of multiverse_tpu.
 
-The K-beam and greedy multi-future inference paths, serving, and
-training, held against the JAX package ``multiverse_tpu`` on the same
-weights and inputs. Plain tensor code is PyTorch; every TPU kernel on
+The K-beam and greedy multi-future inference paths, serving, training
+and SimAug training, held against the JAX package ``multiverse_tpu`` on
+the same weights and inputs. Plain tensor code is PyTorch; every TPU kernel on
 those paths is a hand-written CUDA kernel for Hopper (``csrc/``), built
 with nvcc at first use. This package imports nothing of jax or of the
 JAX package: it keeps its own copies of the host-only modules it needs.
@@ -13,14 +13,19 @@ Layout (module names follow ``multiverse_tpu``):
     ops/           conv2d, ConvLSTM, GNN, the fused decode steps, the
                    training attention kernels, their nvcc/ctypes build
     models/        Multiverse parameters, scene CNN, greedy decode,
-                   model_forward and the losses, diverse beam search
-    data/          the training dataset, batch prefetch, scene helpers
+                   model_forward and the losses, diverse beam search,
+                   SimAug (attack, multiview augmentation, loss)
+    data/          the training dataset, SimAug's multi-view grouping,
+                   batch prefetch, scene helpers
     train/         optimizers and train steps, evaluation, checkpoints
+    eval/          scoring of output pickles (numpy)
     inference.py   beam_forward, greedy_forward, the offline run
     serving/       the serving engine and its HTTP front ends
     bridge.py      weights to and from the JAX parameter tree and npz
-    cli/           mvt-torch-train, mvt-torch-test,
-                   mvt-torch-multifuture-inference, mvt-torch-serve
+    cli/           mvt-torch-train, mvt-torch-train-simaug,
+                   mvt-torch-test, mvt-torch-multifuture-inference,
+                   mvt-torch-serve, mvt-torch-eval-trajs,
+                   mvt-torch-eval-prob, mvt-torch-evaluate-sdd
 """
 
 __version__ = "0.1.0"

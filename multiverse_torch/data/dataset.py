@@ -181,9 +181,11 @@ def read_data(prepropath: str, split: str,
     return ds
 
 
-def batch_to_device(batch: Batch, device: torch.device) -> Batch:
-    """Copy a numpy Batch to ``device`` (through pinned memory, without
-    waiting, when it is a GPU); the scene table stays uint8."""
+def batch_to_device(batch, device: torch.device):
+    """Copy a numpy Batch (or any NamedTuple of arrays, tuples of arrays
+    and None, such as a SimAug ``MultiviewBatch``) to ``device`` (through
+    pinned memory, without waiting, when it is a GPU); the scene table
+    stays uint8."""
     device = torch.device(device)
 
     def put(a):
@@ -194,8 +196,8 @@ def batch_to_device(batch: Batch, device: torch.device) -> Batch:
             return t.pin_memory().to(device, non_blocking=True)
         return t.to(device)
 
-    return Batch(*(tuple(put(a) for a in f) if isinstance(f, tuple)
-                   else put(f) for f in batch))
+    return type(batch)(*(tuple(put(a) for a in f) if isinstance(f, tuple)
+                         else put(f) for f in batch))
 
 
 # ------------------------------------------------------------ synthetic

@@ -122,21 +122,25 @@ def build_optimizer(cfg: MultiverseConfig,
 Tensors = Dict[str, torch.Tensor]
 
 
+def gradients(model, total: torch.Tensor) -> Tensors:
+    """{name: d total / d parameter} over ``model``'s parameters, zeros
+    for a parameter the loss does not reach (as JAX's grad gives)."""
+    named = list(model.named_parameters())
+    grads = torch.autograd.grad(total, [p for _, p in named],
+                                allow_unused=True)
+    return {n: torch.zeros_like(p) if g is None else g
+            for (n, p), g in zip(named, grads)}
+
+
 def loss_and_grads(model, batch: Batch, cfg: MultiverseConfig,
                    rng: Optional[int] = None) -> Tuple[Tensors, Tensors]:
     """Train-mode forward, loss and gradients. Returns ({name:
-    gradient} (zeros for a parameter the loss does not reach, as JAX's
-    grad gives), {loss name: detached scalar, "total" included})."""
-    named = list(model.named_parameters())
+    gradient}, {loss name: detached scalar, "total" included})."""
     out = model_forward(model, batch, cfg, is_train=True, rng=rng)
     total, parts = compute_loss(model, batch, out, cfg)
-    grads = torch.autograd.grad(total, [p for _, p in named],
-                                allow_unused=True)
-    grads = {n: torch.zeros_like(p) if g is None else g
-             for (n, p), g in zip(named, grads)}
     parts = {k: v.detach() for k, v in parts.items()}
     parts["total"] = total.detach()
-    return grads, parts
+    return gradients(model, total), parts
 
 
 def make_train_step(cfg: MultiverseConfig, tx: Optimizer):

@@ -14,15 +14,19 @@ at least 0.999 of entries and none more than one bf16 step off, a gate
 shown to reject two planted faults; K2/K3's gate launch on the plain
 h2_q held to the same gate, shown to reject three planted layout
 faults; the training attention's K4 (forward) and K5 (backward), max
-abs error 2e-2 x max |plain| (K4 also 2e-2), and the decodes that must
-run them. A CUDA kernel has no CPU mode, so without a GPU every test
-here skips.
+abs error 2e-2 x max |plain| (K4 also 2e-2), also at SimAug's shapes
+(N = 36 and 12) and with only the node rows requiring grad, the decodes
+that must run them, and a SimAug attack step's input gradient through
+them within 2e-2 relative L2 of the plain versions'. A CUDA kernel
+has no CPU mode, so without a GPU every test here skips.
 
 This file imports neither jax nor tests/conftest.py's fixtures, so it
 also runs where jax is not installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 """
+
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -31,6 +35,7 @@ import torch
 from multiverse_torch.config import MultiverseConfig
 from multiverse_torch import inference
 from multiverse_torch.data import dataset
+from multiverse_torch.geometry import one_hot_grid
 from multiverse_torch.models import Multiverse
 from multiverse_torch.ops import (
     ConvLSTMState,
@@ -71,7 +76,14 @@ from multiverse_torch.ops.fused_decode import (
     row_scales_q8dyn_ref,
 )
 from multiverse_torch.ops.gate_layout import prepare_gate_weights
+from multiverse_torch.data.multiview import (
+    MultiviewDataset,
+    synthesize_multiview_split,
+)
+from multiverse_torch.models import simaug
+from multiverse_torch.ops import fused_gnn
 from multiverse_torch.ops.fused_gnn import (
+    GnnDense,
     gnn_dense_bwd,
     gnn_dense_bwd_ref,
     gnn_dense_fwd,
@@ -389,7 +401,12 @@ GNN_SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("N,H,W,D,C", GNN_SHAPES)
+# SimAug's: the multiview attack at N*M = 12 x 3 samples, its outer step
+# at N = 12
+SIMAUG_GNN_SHAPES = [(36, 18, 32, 256, 64), (12, 18, 32, 256, 64)]
+
+
+@pytest.mark.parametrize("N,H,W,D,C", GNN_SHAPES + SIMAUG_GNN_SHAPES)
 def test_gnn_kernels_match_plain_versions(cuda, N, H, W, D, C):
     node, states, g = _gnn_operands(N, H, W, D, C, cuda)
     before = (gnn_dense_fwd.launches, gnn_dense_bwd.launches)
@@ -455,6 +472,62 @@ def test_gnn_step_fused_autograd_on_the_card_tracks_the_cpu(cuda):
     for a, b in zip(*grads):
         assert float((a - b).abs().max()) <= TOL * max(1.0, float(
             b.abs().max()))
+
+
+def test_gnn_dense_backward_to_node_alone(cuda):
+    """The attack's role: only the node rows require grad (the states
+    are h, which the attack reaches through node as well, but here
+    held constant); K5 runs once and node.grad is its dnode."""
+    node, states, g = _gnn_operands(4, 6, 8, 16, 4, cuda)
+    leaf = node.clone().requires_grad_()
+    before = gnn_dense_bwd.launches
+    out = GnnDense.apply(leaf, states, 6, 8)
+    (dnode,) = torch.autograd.grad(out, leaf, g)
+    torch.cuda.synchronize()
+    assert gnn_dense_bwd.launches == before + 1
+    want = gnn_dense_bwd_ref(node, states, g, 6, 8)[0].float()
+    assert dnode.dtype == node.dtype
+    assert float((dnode.float() - want).abs().max()) <= TOL * float(
+        want.abs().max())
+
+
+def test_simaug_attack_input_grad_kernel_tracks_plain(cuda):
+    """One multiview attack step's input gradient (sum CE with respect
+    to the scene features, parameters detached) through K4/K5 and
+    through their plain versions on the same weights, batch and start:
+    CE within 1e-2 relative, the gradient within 2e-2 relative L2, one
+    K4 and one K5 launch per decode step."""
+    cfg = simaug.SimAugConfig(
+        scene_h=12, scene_w=16, scene_class=5, video_h=540, video_w=960,
+        enc_hidden_size=32, dec_hidden_size=32, scene_conv_dim=8,
+        emb_size=8, obs_len=4, pred_len=6, use_gnn=True,
+        compute_dtype="bfloat16", multiview_train=True).validate()
+    ds = MultiviewDataset(dataset.dataset_from_arrays(
+        synthesize_multiview_split(cfg, 3), cfg, "train"), cfg, 3)
+    batch = dataset.batch_to_device(ds.make_batch(list(range(4)))[0], cuda)
+    params = simaug._detached(Multiverse.init(cfg, seed=0, device=cuda))
+    i = cfg.active_scales[0]
+    h, w = cfg.scene_grids[i]
+    M = batch.pred_grid_class_extra.shape[1]
+    scene = simaug.scene_input_of(batch, cfg)
+    tiled = scene.repeat_interleave(M, dim=0)
+    start = tiled + torch.empty_like(tiled).uniform_(-0.1, 0.1)
+    onehot = one_hot_grid(batch.obs_grid_class[:, i], h, w) \
+        .repeat_interleave(M, dim=0)
+    target = batch.pred_grid_class_extra.reshape(4 * M, -1)
+    before = (gnn_dense_fwd.launches, gnn_dense_bwd.launches)
+    grad_k, ce_k = simaug._input_grad(params, start, onehot, target, cfg)
+    torch.cuda.synchronize()
+    assert (gnn_dense_fwd.launches - before[0],
+            gnn_dense_bwd.launches - before[1]) == (cfg.pred_len,) * 2
+    with mock.patch.object(fused_gnn, "gnn_dense_fwd", gnn_dense_fwd_ref), \
+            mock.patch.object(fused_gnn, "gnn_dense_bwd", gnn_dense_bwd_ref):
+        grad_p, ce_p = simaug._input_grad(params, start, onehot, target,
+                                          cfg)
+    assert float(((ce_k - ce_p).abs() / ce_p.abs()).max()) <= 1e-2
+    rel = float((grad_k - grad_p).norm() / grad_p.norm())
+    assert rel <= TOL, rel
+    assert torch.isfinite(grad_k).all()
 
 
 def _tiny_train_cfg(**kw):

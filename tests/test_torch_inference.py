@@ -269,9 +269,11 @@ def test_cuda_request_raises_without_cuda():
 
 def test_port_never_imports_jax():
     """With jax and the JAX package made unimportable, every module of
-    the port and chip_smoke.py import, the beam, greedy, int8a and
-    int8_dyn (beam and greedy) paths run on the CPU, and so does one
-    bf16 train step through mvt-torch-train's own pieces."""
+    the port and chip_smoke.py import (SimAug's and the scoring
+    modules among them), the beam, greedy, int8a and int8_dyn (beam and
+    greedy) paths run on the CPU, and so do one bf16 train step through
+    mvt-torch-train's own pieces, one bf16 SimAug multiview step and
+    one minADE scoring."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for name in ('jax', 'jaxlib', 'multiverse_tpu'):\n"
@@ -310,6 +312,32 @@ def test_port_never_imports_jax():
         "    dataset.batch_to_device(ds.make_batch([0, 1, 2, 3])[0], 'cpu'),\n"
         "    rng=1)\n"
         "assert float(losses['total']) > 0\n"
+        "for name in ('models.simaug', 'data.multiview', 'cli.train_simaug',\n"
+        "             'eval.multifuture', 'eval.sdd',\n"
+        "             'cli.multifuture_eval_trajs',\n"
+        "             'cli.multifuture_eval_trajs_prob', 'cli.evaluate_sdd'):\n"
+        "    assert 'multiverse_torch.' + name in names, name\n"
+        "import dataclasses\n"
+        "from multiverse_torch.data import multiview\n"
+        "from multiverse_torch.models import simaug\n"
+        "scfg = simaug.SimAugConfig(**dataclasses.asdict(tcfg),\n"
+        "    multiview_train=True, use_mixup=True, double_weighting=True,\n"
+        "    adv_use_fgsm=True).validate()\n"
+        "mds = multiview.MultiviewDataset(dataset.dataset_from_arrays(\n"
+        "    multiview.synthesize_multiview_split(scfg, 2), scfg, 'train'),\n"
+        "    scfg, 3)\n"
+        "smodel = Multiverse.init(scfg, trainable=True)\n"
+        "stx = trainer.build_optimizer(scfg, 8)\n"
+        "parts = simaug.make_simaug_train_step(scfg, stx)(\n"
+        "    smodel, stx.init(dict(smodel.named_parameters())),\n"
+        "    dataset.batch_to_device(mds.make_batch([0, 1, 2, 3])[0], 'cpu'),\n"
+        "    1)\n"
+        "assert float(parts['total']) > 0\n"
+        "from multiverse_torch.eval import multifuture\n"
+        "m = multifuture.evaluate_multifuture_trajs(\n"
+        "    {'a_cam1': [[[0.0, 0.0]]]}, None,\n"
+        "    gt_trajs={'a_cam1': {0: {'x_agent_traj': [(0, 1, 3.0, 4.0)]}}})\n"
+        "assert m['minade_45-degree'] == 5.0\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
         "             and m.startswith(('jax', 'multiverse_tpu')))\n"
         "print('MODULES', len(names), 'JAX_MODULES', bad)\n"

@@ -1,0 +1,112 @@
+"""``mvt-torch-train-simaug`` on the CPU: its parser is the JAX
+``mvt-train-simaug``'s (same flags and defaults: keep_prob 0.7, the
+scene encoder forced on) plus ``--device`` and ``--model_parallel``;
+``main --device cpu`` on tiny 4-camera data (multiview exp 3, FGSM,
+mixup, double weighting, dropout) writes config.json with the SimAug
+fields, npz ``{save,best}`` checkpoints that load back and
+``val_perf.json``, and resumes with ``--load`` above its last step; it
+refuses an orbax ``--load_from``, ``--model_parallel`` other than 1 and
+the scene encoder off."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+from multiverse_tpu.cli import train_simaug as jax_cli
+from multiverse_torch.bridge import load_params_npz
+from multiverse_torch.cli import train_simaug as cli
+from multiverse_torch.data.multiview import synthesize_multiview_prepro
+from multiverse_torch.models.simaug import SimAugConfig
+from multiverse_torch.train.checkpoints import list_steps
+
+MODEL_FLAGS = [
+    "--obs_len", "4", "--pred_len", "5",
+    "--scene_h", "12", "--scene_w", "16", "--scene_class", "5",
+    "--emb_size", "8", "--enc_hidden_size", "16",
+    "--dec_hidden_size", "16", "--scene_conv_dim", "8",
+    "--scene_grid_strides", "2,4", "--use_grids", "1,0", "--use_gnn",
+]
+SIMAUG_FLAGS = ["--multiview_train", "--multiview_exp", "3",
+                "--adv_use_fgsm", "--use_mixup", "--mixup_alpha", "1.0",
+                "--adv_epsilon", "0.1", "--double_weighting",
+                "--fl_gamma", "1.0"]
+
+
+def _options(parser) -> dict:
+    return {a.dest: a.default for a in parser._actions if a.dest != "help"}
+
+
+def test_parser_is_the_jax_parser_plus_device():
+    port = _options(cli.build_parser())
+    jax_opts = _options(jax_cli.build_parser())
+    assert set(port) - set(jax_opts) == {"device", "model_parallel"}
+    assert set(jax_opts) <= set(port)
+    assert {k: port[k] for k in jax_opts} == jax_opts
+    assert port["keep_prob"] == 0.7 and port["use_scene_enc"] is True
+    assert set(cli.SIMAUG_FIELDS) == set(jax_cli.SIMAUG_FIELDS)
+
+
+@pytest.fixture(scope="module")
+def prepro(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("simaug_cli"))
+    cfg = SimAugConfig(obs_len=4, pred_len=5, scene_h=12, scene_w=16,
+                       scene_class=5).validate()
+    return root, synthesize_multiview_prepro(
+        os.path.join(root, "prepro"), cfg, num_agents=5, n_val=6, seed=0)
+
+
+def test_main_on_cpu_writes_checkpoints_config_and_val_perf(prepro, capsys):
+    root, path = prepro
+    out = os.path.join(root, "out")
+    argv = [path, out, "simaug", "--device", "cpu", "--batch_size", "4",
+            "--num_epochs", "1", "--save_period", "3", "--init_lr", "0.3",
+            *MODEL_FLAGS, *SIMAUG_FLAGS]
+    cli.main(argv)
+    run = os.path.join(out, "simaug", "00")
+    with open(os.path.join(run, "config.json")) as f:
+        cfg = json.load(f)
+    assert cfg["multiview_train"] is True and cfg["multiview_exp"] == 3
+    assert cfg["adv_use_fgsm"] is True and cfg["double_weighting"] is True
+    assert cfg["keep_prob"] == 0.7 and cfg["use_scene_enc"] is True
+    assert cfg["multiview_max_num"] == 3
+    assert set(cli.SIMAUG_FIELDS) <= set(cfg)
+    SimAugConfig.from_json(json.dumps(cfg)).validate()
+    with open(os.path.join(run, "val_perf.json")) as f:
+        best = json.load(f)["best"]
+    # 20 examples, batch 4: 5 steps, evals at 3 and 5
+    assert best["step"] in (3, 5)
+    assert np.isfinite(best["grid0_traj_ade"])
+    saves = list_steps(os.path.join(run, "save"))
+    assert [s for s, _ in saves] == [3, 5]
+    assert list_steps(os.path.join(run, "best"))
+    model = load_params_npz(saves[-1][1])
+    assert all(np.isfinite(p.detach().numpy()).all()
+               for p in model.parameters())
+    printed = capsys.readouterr().out
+    assert "SimAug training: 5 steps, views=3, mode=multiview" in printed
+    assert "best val grid0_traj_ade" in printed
+
+    # --load resumes above the last step
+    cli.main(argv + ["--load", "--adv_train", "--adv_num_iter", "2",
+                     "--num_epochs", "1"])
+    assert [s for s, _ in list_steps(os.path.join(run, "save"))][-2:] == \
+        [8, 10]
+
+
+def test_refusals(prepro, tmp_path):
+    root, path = prepro
+    orbax = tmp_path / "orbax_run"
+    (orbax / "300").mkdir(parents=True)
+    with pytest.raises(ValueError, match="orbax"):
+        cli.main([path, str(tmp_path), "m", "--device", "cpu",
+                  "--load_from", str(orbax), *MODEL_FLAGS])
+    with pytest.raises(SystemExit, match="model_parallel"):
+        cli.main([path, str(tmp_path), "m", "--device", "cpu",
+                  "--model_parallel", "2", *MODEL_FLAGS])
+    with pytest.raises(ValueError, match="use_scene_enc"):
+        SimAugConfig(use_scene_enc=False).validate()
+    with pytest.raises(ValueError, match="one active grid"):
+        SimAugConfig(multiview_train=True,
+                     use_grids=(True, True)).validate()
