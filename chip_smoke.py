@@ -97,11 +97,19 @@
    backend) medians; for K4 and K5 the profiler device time of each
    launch, the events time, the wrapper's host enqueue time a call and
    the share of the bound.
-6. Training phase: ``mvt-torch-train``'s own ``main`` with the published
+6. Preprocess and training phase: raw files in the reference's format
+   (per-video trajectory TSVs at 2.5 fps, a uint8 36x64 scene class map
+   per frame, the scene id json; 4 train videos of 5 persons over 39
+   frames, one val and one test video) go through
+   ``mvt-torch-preprocess``'s own ``main`` with TRAINING.md section 1's
+   flags (``--add_grid --add_all_reg --add_scene --direct_scene_feat
+   --grid_strides 2,4 --obs_len 8 --pred_len 12``): 400 train, 100 val
+   and 100 test examples, the seconds and examples/s printed. Then
+   ``mvt-torch-train``'s own ``main`` with the published
    training flags (TRAINING.md, adadelta lr 0.3, soft grid labels, GNN
    and scene encoder, clip 10) plus ``--compute_dtype bfloat16``, batch
-   20, 2 epochs of 400 synthetic examples (``synthesize_prepro``, the
-   published widths; 100 for val), ``--save_period 20``, on cuda. Checks
+   20, 2 epochs of those 400 examples (100 for val), ``--save_period
+   20``, on cuda. Checks
    every loss is finite, K4 and K5 ran steps x 12 times, the evals' K1
    ran batches x 12 times, the last 10 steps' mean loss is below the
    first step's, both checkpoint directories hold npz files and the best
@@ -134,6 +142,24 @@
    buffered steps/s and examples/s, idle share and top device
    operations; and the ``--adv_train`` PGD-30 step at batch 12: seconds
    a step over 3 steps, K4 and K5 each 31 x 12 launches a step.
+8. Serve-lifecycle phase, on phase 6's run directory:
+   ``mvt-torch-serve``'s own ``main`` loads the latest ``save`` step (no
+   --load_from, no --random_init) in its cuda tier (bf16 + int8a, beam
+   max_batch 8, K = 20) with ``--reload_poll_s 0.2`` and serves through
+   ``AsyncPredictionServer``. K3 is first held against its plain version
+   at the engine's 160 rows on the served weights, then 32 requests from
+   4 client threads (checked as in 4.). Then 5 more train steps on that
+   step (K4/K5 counted) are saved by ``CheckpointManager.save`` as the
+   next step; requests are sent until the responses follow the new
+   weights, and the seconds from the file's rename to that response are
+   printed. That response must equal a direct forward on the new step's
+   weights (loaded from its file) within 1e-3 and differ from the old
+   step's by more than 1e-3 in its beam log-probs; then another 32
+   requests. Last, ``run_multifuture_inference`` of the reloaded step,
+   loaded as ``mvt-torch-multifuture-inference`` loads its
+   ``model_path``, in int8a on 32 trajectories (K3 batches x T times,
+   pickles checked), and a second run with ``timings``: traj/s and the
+   build, fetch and pack seconds.
 
 Prints one JSON line describing the kernels, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero;
@@ -172,16 +198,14 @@ import numpy as np
 import torch
 
 from multiverse_torch import inference
+from multiverse_torch.cli import multifuture_inference as inference_cli
+from multiverse_torch.cli import preprocess as preprocess_cli
 from multiverse_torch.cli import serve
 from multiverse_torch.cli import train as train_cli
 from multiverse_torch.cli import train_simaug as simaug_cli
 from multiverse_torch.config import MultiverseConfig
 from multiverse_torch.bridge import load_params_npz
-from multiverse_torch.data.dataset import (
-    batch_to_device,
-    read_data,
-    synthesize_prepro,
-)
+from multiverse_torch.data.dataset import batch_to_device, read_data
 from multiverse_torch.data.multiview import (
     MultiviewDataset,
     synthesize_multiview_prepro,
@@ -250,7 +274,11 @@ from multiverse_torch.serving.client import PredictionClient
 from multiverse_torch.serving.engine import RawInputs, rasterize_batch
 from multiverse_torch.serving.server import PredictionServer
 from multiverse_torch.train import trainer
-from multiverse_torch.train.checkpoints import list_steps
+from multiverse_torch.train.checkpoints import (
+    CheckpointManager,
+    list_steps,
+    load_checkpoint,
+)
 
 TOL = 2e-2
 # least share of the q8 kernels' int8 gate inputs (h2_q) equal to the
@@ -327,6 +355,19 @@ TRAIN_FLAGS = ["--batch_size", "20", "--num_epochs", "2", "--init_lr", "0.3",
                "--wd", "0.0001", "--save_period", "20",
                "--compute_dtype", "bfloat16", "--device", "cuda"]
 TRAIN_EXAMPLES, VAL_EXAMPLES = 400, 100
+# TRAINING.md section 1's mvt-preprocess flags (the paths are added)
+PREPRO_FLAGS = ["--add_grid", "--add_all_reg", "--add_scene",
+                "--direct_scene_feat", "--grid_strides", "2,4",
+                "--obs_len", "8", "--pred_len", "12"]
+# the raw files phase 6 writes in the reference's format: RAW_VIDEOS
+# videos a split, each with RAW_PERSONS persons seen in all RAW_FRAMES
+# frames (2.5 fps), so (RAW_FRAMES - 19) x RAW_PERSONS examples a video:
+# TRAIN_EXAMPLES, VAL_EXAMPLES and 100 test examples
+RAW_VIDEOS = {"train": 4, "val": 1, "test": 1}
+RAW_PERSONS, RAW_FRAMES = 5, 39
+# the serve-lifecycle phase: the reload poll period, and the train steps
+# between the served step and the one that replaces it
+RELOAD_POLL_S, RELOAD_STEPS = 0.2, 5
 # TRAINING.md section 2's published SimAug command (its --grid_strides is
 # --scene_grid_strides in both trainers) plus bf16, keep_prob at the
 # command's 0.7, one epoch of synthetic 4-camera data (SIMAUG_AGENTS
@@ -1165,11 +1206,14 @@ def id_agreement(model, cfg, inputs, dev, tier: str = "none",
 # ------------------------------------------------------------------ serve
 
 
-def direct_trajs(engine, cfg, obs, pred_len: int) -> np.ndarray:
-    """A direct forward of one request, in every row of a batch of the
-    engine's shape: [K, pred_len, 2] points (greedy: the one future).
-    The beam order depends on pred_len (finished beams freeze)."""
+def direct_forward(engine, cfg, obs, pred_len: int, params=None):
+    """A direct forward of one request on ``params`` (default: the
+    engine's), in every row of a batch of the engine's shape. Returns
+    [K, pred_len, 2] points (greedy: the one future) and the [K] beam
+    log-probs (greedy: None). The beam order depends on pred_len
+    (finished beams freeze)."""
     dev = engine.device
+    params = engine._params if params is None else params
     B, T = engine.max_batch, engine.T_pred
     raw = RawInputs(
         obs_xy=torch.as_tensor(np.tile(obs[None], (B, 1, 1)), device=dev),
@@ -1178,19 +1222,20 @@ def direct_trajs(engine, cfg, obs, pred_len: int) -> np.ndarray:
         scene_feat=engine._default_scene,
         pred_length=torch.full((B,), pred_len, dtype=torch.int32,
                                device=dev))
+    logprobs = None
     with torch.inference_mode():
         batch = rasterize_batch(raw, cfg, engine._centers_hw)
         if engine.greedy:
-            logits, reg = inference.greedy_forward(engine._params, batch,
-                                                   cfg, T_pred=T)
+            logits, reg = inference.greedy_forward(params, batch, cfg,
+                                                   T_pred=T)
             trajs = inference.reconstruct_greedy_trajs(
                 logits, reg, engine._centers)[:1]
         else:
-            beam, reg = inference.beam_forward(engine._params, batch, cfg,
-                                               T_pred=T)
+            beam, reg = inference.beam_forward(params, batch, cfg, T_pred=T)
             trajs = inference.reconstruct_beam_trajs(
                 beam.ids, reg, engine._centers)[0]
-    return trajs[:, :pred_len].cpu().numpy()
+            logprobs = beam.logprobs[0].float().cpu().numpy()
+    return trajs[:, :pred_len].cpu().numpy(), logprobs
 
 
 def serve_burst(engine, cfg, server, what: str, obs, pred_lens,
@@ -1239,7 +1284,7 @@ def serve_burst(engine, cfg, server, what: str, obs, pred_lens,
         raise AssertionError(
             f"{what}: the {tier} kernel ran {launches} steps for "
             f"{stats['batches']} batches x T={engine.T_pred}")
-    want = direct_trajs(engine, cfg, obs[0], int(pred_lens[0]))
+    want, _ = direct_forward(engine, cfg, obs[0], int(pred_lens[0]))
     diff = float(np.abs(results[0]["trajs"] - want).max())
     # a smoke reading, not a serving metric: too few requests for a
     # tail percentile (the max is given), batches mostly padding
@@ -1283,7 +1328,7 @@ def serve_phase(flags, dev, greedy: bool, n_requests: int,
         raise AssertionError(f"the serving tier must be bf16 + {tier}, got "
                              f"{cfg.compute_dtype} + {cfg.decode_quant}")
     engine = serve.ServingEngine(
-        serve.load_model(args, cfg), cfg, max_batch=args.max_batch,
+        serve.load_model(args, cfg)[0], cfg, max_batch=args.max_batch,
         max_delay_ms=args.max_delay_ms, device=dev)
     what = ("greedy" if greedy else "beam") + \
         ("" if tier == "int8a" else f" {tier}")
@@ -1586,57 +1631,133 @@ def compare_step(what: str, grads_k, loss_k: float, grads_p,
                              "plain one" % what)
 
 
-def train_phase(dev) -> dict:
-    """mvt-torch-train end to end on the card; returns the launches of
-    K4, K5 and the evals' K1."""
-    cfg = MultiverseConfig(batch_size=20, compute_dtype="bfloat16",
-                           use_soft_grid_class=True).validate()
-    with tempfile.TemporaryDirectory() as tmp:
-        prepro = synthesize_prepro(os.path.join(tmp, "prepro"), cfg,
-                                   TRAIN_EXAMPLES, VAL_EXAMPLES, seed=0)
-        rec = StepRecorder(trainer.make_train_step)
-        reset_launches()
-        t0 = time.perf_counter()
-        with mock.patch.object(train_cli, "make_train_step", rec):
-            train_cli.main([prepro, os.path.join(tmp, "out"), "multiverse",
-                            *TRAIN_FLAGS])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        steps = len(rec.losses)
-        losses = torch.stack(rec.losses).cpu().numpy()
-        launches = {"K4": gnn_dense_fwd.launches,
-                    "K5": gnn_dense_bwd.launches,
-                    "K1": decode_step_gathered.launches}
-        run = os.path.join(tmp, "out", "multiverse", "00")
-        with open(os.path.join(run, "val_perf.json")) as f:
-            val_perf = json.load(f)
-        eval_batches = len(val_perf["val_perf"]) * (
-            -(-VAL_EXAMPLES // cfg.batch_size))
-        print("train phase: %d steps in %.3f s (main, evals and saves "
-              "included); first loss %.4f, last 10 mean %.4f; launches K4 "
-              "%d, K5 %d, eval K1 %d (%d eval batches)"
-              % (steps, wall, losses[0], losses[-10:].mean(), launches["K4"],
-                 launches["K5"], launches["K1"], eval_batches))
-        if steps != 2 * TRAIN_EXAMPLES // cfg.batch_size \
-                or not np.isfinite(losses).all():
-            raise AssertionError(f"train phase: {steps} steps, losses "
-                                 f"finite: {np.isfinite(losses).all()}")
-        if launches["K4"] != steps * cfg.pred_len \
-                or launches["K5"] != steps * cfg.pred_len:
-            raise AssertionError(f"train phase: K4/K5 ran {launches['K4']}/"
-                                 f"{launches['K5']} times for {steps} steps "
-                                 f"x {cfg.pred_len}")
-        if launches["K1"] != eval_batches * cfg.pred_len:
-            raise AssertionError(f"train phase: the evals' K1 ran "
-                                 f"{launches['K1']} times for "
-                                 f"{eval_batches} batches x {cfg.pred_len}")
-        if not losses[-10:].mean() < losses[0]:
-            raise AssertionError("train phase: the loss did not fall")
-        model = best_checkpoint_decodes("train phase", run,
-                                        val_perf["best"]["step"], cfg, dev)
+def write_raw_dataset(root: str, cfg, seed: int = 0):
+    """TRAINING.md section 1's inputs in the reference's on-disk format:
+    per-video trajectory TSVs (frame, person, x, y at 2.5 fps of a 30 fps
+    video), a uint8 scene class map per frame at the configuration's
+    scene size, and the scene id json. Persons walk at a constant
+    velocity with a little noise, inside the frame. Returns (traj_path,
+    scene_path, id2name_path)."""
+    rng = np.random.RandomState(seed)
+    traj_path = os.path.join(root, "traj_2.5fps")
+    scene_path = os.path.join(root, "scene_seg")
+    size = np.array([cfg.video_w, cfg.video_h], np.float32)
+    for split, n_videos in RAW_VIDEOS.items():
+        os.makedirs(os.path.join(traj_path, split))
+        for v in range(n_videos):
+            name = "VIRAT_S_%s_%04d" % (split, v)
+            os.makedirs(os.path.join(scene_path, name))
+            start = rng.uniform(0.2, 0.8, (RAW_PERSONS, 2)) * size
+            velocity = rng.randn(RAW_PERSONS, 2) * 0.01 * size
+            xy = start + velocity * np.arange(RAW_FRAMES)[:, None, None] \
+                + rng.randn(RAW_FRAMES, RAW_PERSONS, 2) * 0.002 * size
+            xy = np.clip(xy, 1.0, size - 1.0)
+            scene_map = rng.randint(0, cfg.scene_class,
+                                    (cfg.scene_h, cfg.scene_w)).astype(np.uint8)
+            lines = []
+            for f in range(RAW_FRAMES):
+                frame_idx = f * 12
+                lines += ["%d\t%d\t%.3f\t%.3f" % (frame_idx, p, *xy[f, p])
+                          for p in range(RAW_PERSONS)]
+                np.save(os.path.join(scene_path, name, "%s_F_%08d.npy"
+                                     % (name, frame_idx)), scene_map)
+            with open(os.path.join(traj_path, split, name + ".txt"),
+                      "w") as fh:
+                fh.write("\n".join(lines) + "\n")
+    id2name = os.path.join(root, "scene36_64_id2name_top10.json")
+    with open(id2name, "w") as fh:
+        json.dump({"oldid2new": {str(i): i for i in range(1, cfg.scene_class)},
+                   "id2name": {str(i): "class%d" % i
+                               for i in range(1, cfg.scene_class)}}, fh)
+    return traj_path, scene_path, id2name
 
-        ds = read_data(prepro, "train", cfg)
-        batch = batch_to_device(ds.make_batch(list(range(20)))[0], dev)
+
+def preprocess_phase(root: str, cfg) -> str:
+    """``mvt-torch-preprocess``'s own main with TRAINING.md section 1's
+    flags on raw files written here; returns the prepro directory."""
+    traj_path, scene_path, id2name = write_raw_dataset(root, cfg)
+    prepro = os.path.join(root, "prepro")
+    t0 = time.perf_counter()
+    preprocess_cli.main([traj_path, prepro, "--scene_feat_path", scene_path,
+                         "--scene_id2name", id2name, *PREPRO_FLAGS])
+    dt = time.perf_counter() - t0
+    counts = {}
+    for split in RAW_VIDEOS:
+        with np.load(os.path.join(prepro, "data_%s.npz" % split),
+                     allow_pickle=True) as d:
+            counts[split] = len(d["obs_traj"])
+            if split == "train" and d["scene_feat"].shape[1:] != (
+                    cfg.scene_h, cfg.scene_w, cfg.scene_class):
+                raise AssertionError("preprocess phase: scene features "
+                                     f"{d['scene_feat'].shape}")
+    want = {s: n * RAW_PERSONS * (RAW_FRAMES - cfg.seq_len + 1)
+            for s, n in RAW_VIDEOS.items()}
+    print("preprocess phase: mvt-torch-preprocess wrote %s examples in "
+          "%.3f s, %.1f examples/s (host numpy)"
+          % (counts, dt, sum(counts.values()) / dt))
+    if counts != want or counts["train"] != TRAIN_EXAMPLES \
+            or counts["val"] != VAL_EXAMPLES:
+        raise AssertionError(f"preprocess phase: {counts} examples, "
+                             f"expected {want}")
+    return prepro
+
+
+def train_config() -> MultiverseConfig:
+    """The configuration ``mvt-torch-train`` makes of TRAIN_FLAGS."""
+    return train_cli.config_from_args(train_cli.build_parser().parse_args(
+        ["prepro", "out", "multiverse", *TRAIN_FLAGS]))
+
+
+def train_phase(dev, tmp: str) -> dict:
+    """mvt-torch-train end to end on the card, on data that
+    mvt-torch-preprocess made (``tmp``/prepro; the run lands in
+    ``tmp``/out/multiverse/00); returns the launches of K4, K5 and the
+    evals' K1."""
+    cfg = train_config()
+    prepro = preprocess_phase(tmp, cfg)
+    rec = StepRecorder(trainer.make_train_step)
+    reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(train_cli, "make_train_step", rec):
+        train_cli.main([prepro, os.path.join(tmp, "out"), "multiverse",
+                        *TRAIN_FLAGS])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = len(rec.losses)
+    losses = torch.stack(rec.losses).cpu().numpy()
+    launches = {"K4": gnn_dense_fwd.launches,
+                "K5": gnn_dense_bwd.launches,
+                "K1": decode_step_gathered.launches}
+    run = os.path.join(tmp, "out", "multiverse", "00")
+    with open(os.path.join(run, "val_perf.json")) as f:
+        val_perf = json.load(f)
+    eval_batches = len(val_perf["val_perf"]) * (
+        -(-VAL_EXAMPLES // cfg.batch_size))
+    print("train phase: %d steps in %.3f s (main, evals and saves "
+          "included); first loss %.4f, last 10 mean %.4f; launches K4 "
+          "%d, K5 %d, eval K1 %d (%d eval batches)"
+          % (steps, wall, losses[0], losses[-10:].mean(), launches["K4"],
+             launches["K5"], launches["K1"], eval_batches))
+    if steps != 2 * TRAIN_EXAMPLES // cfg.batch_size \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"train phase: {steps} steps, losses "
+                             f"finite: {np.isfinite(losses).all()}")
+    if launches["K4"] != steps * cfg.pred_len \
+            or launches["K5"] != steps * cfg.pred_len:
+        raise AssertionError(f"train phase: K4/K5 ran {launches['K4']}/"
+                             f"{launches['K5']} times for {steps} steps "
+                             f"x {cfg.pred_len}")
+    if launches["K1"] != eval_batches * cfg.pred_len:
+        raise AssertionError(f"train phase: the evals' K1 ran "
+                             f"{launches['K1']} times for "
+                             f"{eval_batches} batches x {cfg.pred_len}")
+    if not losses[-10:].mean() < losses[0]:
+        raise AssertionError("train phase: the loss did not fall")
+    model = best_checkpoint_decodes("train phase", run,
+                                    val_perf["best"]["step"], cfg, dev)
+
+    ds = read_data(prepro, "train", cfg)
+    batch = batch_to_device(ds.make_batch(list(range(20)))[0], dev)
     model = model.to(dev).requires_grad_(True)
     grad_agreement(model, batch, cfg)
 
@@ -1646,6 +1767,171 @@ def train_phase(dev) -> dict:
     step_throughput("train phase", lambda: step(model, opt_state, batch),
                     cfg.batch_size)
     return launches
+
+
+# ------------------------------------------------------------ lifecycle
+
+
+def lifecycle_phase(dev, tmp: str) -> dict:
+    """The published flow's last steps on phase 6's run
+    (``tmp``/out/multiverse/00): mvt-torch-serve's own main loads it
+    from the run directory (no --load_from, no --random_init) in its cuda
+    tier with --reload_poll_s; requests go over HTTP to its asyncio front
+    end; a step trained further lands in ``save`` and is hot-reloaded;
+    then the offline int8a decode of that step through the inference
+    command's model_path. Returns the main-path launches of K3, K4 and
+    K5."""
+    outbase = os.path.join(tmp, "out")
+    save_dir = os.path.join(outbase, "multiverse", "00", "save")
+    served_step = list_steps(save_dir)[-1][0]
+    launches = {"K3": 0, "K4": 0, "K5": 0}
+
+    def drive(server):
+        """In place of the front end's wait: the phase's traffic."""
+        engine = server.engine
+        cfg = engine.cfg
+        if (cfg.compute_dtype, cfg.decode_quant, engine.max_batch,
+                cfg.beam_size) != ("bfloat16", "int8a", 8, 20):
+            raise AssertionError(
+                "lifecycle: served %s + %s, max_batch %d, K = %d"
+                % (cfg.compute_dtype, cfg.decode_quant, engine.max_batch,
+                   cfg.beam_size))
+        NK = engine.max_batch * cfg.beam_size
+        ops, quant, H, W = kernel_operands(engine._params, cfg, dev, NK)
+        q8 = {k: v for k, v in ops.items()
+              if k not in ("cell_w", "emb_table")}
+        check_q8("K3 at the served run's %d rows" % NK, quant, q8, H, W,
+                 attn_q8=True)
+        rng = np.random.RandomState(4)
+        obs = [np.stack([rng.uniform(0, cfg.video_w, cfg.obs_len),
+                         rng.uniform(0, cfg.video_h, cfg.obs_len)],
+                        axis=1).astype(np.float32) for _ in range(32)]
+        pred_lens = rng.randint(1, engine.T_pred + 1, len(obs))
+        launches["K3"] += serve_burst(
+            engine, cfg, server, "lifecycle step %d (asyncio)" % served_step,
+            obs, pred_lens, n_threads=4)
+
+        T, probe = engine.T_pred, obs[0]
+        client = PredictionClient(port=server.port, binary=True)
+        try:
+            before = client.predict(probe, pred_len=T)
+            old_trajs, old_logprobs = direct_forward(engine, cfg, probe, T)
+            new_step, path, renamed = train_further(dev, tmp, save_dir,
+                                                    launches)
+            deadline = renamed + 60
+            while True:
+                got = client.predict(probe, pred_len=T)
+                if not np.array_equal(got["logprobs"], before["logprobs"]):
+                    break
+                if time.perf_counter() > deadline:
+                    raise AssertionError("lifecycle: step %d was not served "
+                                         "within 60 s" % new_step)
+            reload_s = time.perf_counter() - renamed
+        finally:
+            client.close()
+        new = load_checkpoint(path, Multiverse.init(cfg)).to(dev)
+        new_trajs, new_logprobs = direct_forward(engine, cfg, probe, T,
+                                                 params=new)
+        diffs = {
+            "before vs old": float(np.abs(before["logprobs"]
+                                          - old_logprobs).max()),
+            "after vs new": float(np.abs(got["logprobs"]
+                                         - new_logprobs).max()),
+            "after vs old": float(np.abs(got["logprobs"]
+                                         - old_logprobs).max()),
+            "after trajs vs new": float(np.abs(got["trajs"]
+                                               - new_trajs).max())}
+        print("lifecycle: step %d hot-reloaded %.3f s after its rename "
+              "(the first response on the new weights; poll every %.1f s); "
+              "max abs diffs of the beam log-probs (px for trajs): %s"
+              % (new_step, reload_s, RELOAD_POLL_S, diffs))
+        if not (diffs["before vs old"] <= 1e-3
+                and diffs["after vs new"] <= 1e-3
+                and diffs["after trajs vs new"] <= 1e-3
+                and diffs["after vs old"] > 1e-3):
+            raise AssertionError("lifecycle: the responses do not follow "
+                                 "the served step's weights")
+        launches["K3"] += serve_burst(
+            engine, cfg, server, "lifecycle step %d (asyncio)" % new_step,
+            obs, pred_lens, n_threads=4)
+
+    with mock.patch.object(AsyncPredictionServer, "wait", drive):
+        serve.main([outbase, "multiverse", "--port", "0", "--reload_poll_s",
+                    str(RELOAD_POLL_S), *QUICKSTART_FLAGS])
+
+    # the offline decode of the new step, as mvt-torch-multifuture-
+    # inference loads its model_path, in the int8a tier
+    cfg = flagship_config(decode_quant="int8a")
+    model = inference_cli.load_model(save_dir, cfg)
+    inputs = inference.synthesize_multifuture_inputs(cfg, 32, seed=2)
+    T = int(inputs.pred_lengths.max())
+    reset_launches()
+    out, prob = inference.run_multifuture_inference(model, inputs, cfg,
+                                                    batch_size=16, device=dev)
+    torch.cuda.synchronize()
+    k3 = decode_step_gathered_q8.launches["int8a"]
+    if k3 != 2 * T:
+        raise AssertionError(f"lifecycle offline: K3 ran {k3} steps, "
+                             f"expected 2 x {T}")
+    check_pickles(out, prob, inputs, cfg)
+    launches["K3"] += k3
+    timings = {}
+    t0 = time.perf_counter()
+    inference.run_multifuture_inference(model, inputs, cfg, batch_size=16,
+                                        device=dev, timings=timings)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print("lifecycle offline int8a (the reloaded step through the model_path "
+          "load): %.2f traj/s (second run, %.3f s, 32 trajectories, T=%d, "
+          "%d K3 launches in the first run); timings: build %.4f s, fetch "
+          "%.4f s (%d bytes), pack %.4f s, %d batches"
+          % (len(inputs.traj_ids) / dt, dt, T, k3, timings["build_s"],
+             timings["fetch_s"], timings["fetch_bytes"], timings["pack_s"],
+             timings["batches"]))
+    return launches
+
+
+def train_further(dev, tmp: str, save_dir: str, launches: dict):
+    """RELOAD_STEPS train steps on the latest saved step (through K4/K5,
+    whose launches are added to ``launches``), saved as the next step by
+    ``CheckpointManager.save``. Returns the new step, its path and the
+    host time of its rename."""
+    cfg = train_config()
+    latest = list_steps(save_dir)[-1][0]
+    model = load_checkpoint(save_dir, Multiverse.init(cfg)).to(dev) \
+        .requires_grad_(True)
+    tx = trainer.build_optimizer(cfg, TRAIN_EXAMPLES)
+    opt_state = tx.init(dict(model.named_parameters()))
+    step = trainer.make_train_step(cfg, tx)
+    ds = read_data(os.path.join(tmp, "prepro"), "train", cfg)
+    gnn_dense_fwd.launches = gnn_dense_bwd.launches = 0
+    for b in range(RELOAD_STEPS):
+        batch, _ = ds.make_batch(list(range(b * cfg.batch_size,
+                                            (b + 1) * cfg.batch_size)))
+        loss = float(step(model, opt_state, batch_to_device(batch, dev),
+                          rng=b)["total"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"lifecycle: train loss {loss}")
+    torch.cuda.synchronize()
+    for k, fn in (("K4", gnn_dense_fwd), ("K5", gnn_dense_bwd)):
+        if fn.launches != RELOAD_STEPS * cfg.pred_len:
+            raise AssertionError(f"lifecycle: {k} ran {fn.launches} times "
+                                 f"for {RELOAD_STEPS} steps")
+        launches[k] += fn.launches
+    renamed = []
+    replace = os.replace
+
+    def timed_replace(src, dst):
+        replace(src, dst)
+        renamed.append(time.perf_counter())
+
+    new_step = latest + RELOAD_STEPS
+    with mock.patch.object(os, "replace", timed_replace):
+        path = CheckpointManager(os.path.dirname(save_dir)).save(new_step,
+                                                                 model)
+    print("lifecycle: %d more train steps on step %d (last loss %.4f) "
+          "saved as %s" % (RELOAD_STEPS, latest, loss, path))
+    return new_step, path, renamed[0]
 
 
 # ---------------------------------------------------------------- SimAug
@@ -2030,10 +2316,14 @@ def main() -> int:
                             "int8_dyn"], dev, greedy=False, n_requests=32,
         tier="int8_dyn", servers=SERVERS[:1])
     elapsed("offline and serve phases")
-    trained = train_phase(dev)
-    launches["K1"] += trained["K1"]
-    launches["K4"], launches["K5"] = trained["K4"], trained["K5"]
-    elapsed("train phase")
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = train_phase(dev, tmp)
+        launches["K1"] += trained["K1"]
+        launches["K4"], launches["K5"] = trained["K4"], trained["K5"]
+        elapsed("preprocess and train phases")
+        for k, n in lifecycle_phase(dev, tmp).items():
+            launches[k] += n
+        elapsed("serve-lifecycle phase")
     simaug_run = simaug_phase(model, dev)
     for k in ("K1", "K4", "K5"):
         launches[k] += simaug_run[k]

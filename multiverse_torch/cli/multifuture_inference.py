@@ -1,38 +1,41 @@
 """Multi-future inference command (PyTorch): Forking Paths obs -> K
 trajectories.
 
-Same flags and output pickles as ``mvt-multifuture-inference``
+Same arguments and output pickles as ``mvt-multifuture-inference``
 (``--greedy`` decodes one future and writes it ``--num_out`` times;
-``--decode_quant int8|int8a|int8_dyn`` runs the int8 tiers' kernels), with
-two changes: weights come from ``--params_npz`` (a flat npz written by
-``multiverse_torch.bridge.save_params_npz``) instead of an orbax
-checkpoint directory, and ``--device`` picks the device (default cuda).
-Without ``--params_npz`` the model runs on seeded random weights.
+``--decode_quant int8|int8a|int8_dyn`` runs the int8 tiers' kernels).
+``model_path`` is an npz checkpoint of the port or a ``save``/``best``
+directory (its latest step), pruned to the configuration's parameters
+as the JAX package prunes a checkpoint that holds more grid scales.
+Two additions: ``--device`` picks the device (default cuda), and
+``--random_init`` decodes seeded random weights (seed 0) instead of
+reading ``model_path`` (smoke tests).
 """
 
 from __future__ import annotations
 
 import argparse
-import sys
 
 from multiverse_torch.config import MultiverseConfig
-from multiverse_torch.bridge import check_params, load_params_npz
 from multiverse_torch.inference import (
     load_multifuture_inputs,
     run_multifuture_inference,
     save_outputs,
 )
 from multiverse_torch.models import Multiverse
+from multiverse_torch.train.checkpoints import load_checkpoint
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("model_path",
+                        help="npz checkpoint or save/best directory")
     parser.add_argument("traj_path", help="obs trajectory TSVs")
     parser.add_argument("multifuture_path", help="GT future pickles")
     parser.add_argument("output_file")
-    parser.add_argument("--params_npz", default=None,
-                        help="weights as a flat npz ('/'-joined names); "
-                             "default: seeded random weights (seed 0)")
+    parser.add_argument("--random_init", action="store_true",
+                        help="decode seeded random weights (seed 0); "
+                             "model_path is not read")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--save_prob_file", default=None)
     parser.add_argument("--prob_fetch_dtype", default="float32",
@@ -78,6 +81,16 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def load_model(model_path: str, cfg: MultiverseConfig,
+               random_init: bool = False) -> Multiverse:
+    """The decoded weights: ``model_path``'s, pruned to ``cfg``'s
+    parameters, or seeded random ones with ``random_init``."""
+    template = Multiverse.init(cfg, seed=0)
+    if random_init:
+        return template
+    return load_checkpoint(model_path, template)
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     prog = "mvt-torch-multifuture-inference"
@@ -119,15 +132,7 @@ def main(argv=None) -> None:
         args.scene_feat_path, args.scene_id2name, cfg)
     print("loaded %d trajectories" % len(inputs.traj_ids))
 
-    model = Multiverse.init(cfg, seed=0)
-    if args.params_npz is None:
-        print(f"{prog}: no --params_npz, decoding with seeded random "
-              "weights (seed 0)", file=sys.stderr)
-    else:
-        loaded = load_params_npz(args.params_npz)
-        check_params(loaded, model)
-        model = loaded
-
+    model = load_model(args.model_path, cfg, args.random_init)
     output_data, beam_prob = run_multifuture_inference(
         model, inputs, cfg,
         batch_size=args.batch_size,

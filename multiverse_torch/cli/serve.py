@@ -1,19 +1,23 @@
 """Online prediction server (PyTorch): ``mvt-torch-serve``.
 
 Serves HTTP predictions through the dynamic-batching engine
-(``multiverse_torch/serving/engine.py``) with the same flags as the JAX
-package's ``mvt-serve``, except:
+(``multiverse_torch/serving/engine.py``) with the flags of the JAX
+package's ``mvt-serve`` and its load paths: ``--random_init``,
+``--load_from`` (an npz checkpoint or a ``save``/``best`` directory),
+or else the run directory ``outbasepath/modelname/runId`` (its ``save``
+steps, or ``best`` with ``--load_best``). The weights are pruned to the
+configuration's, as the JAX package prunes a checkpoint that holds more
+grid scales. ``--reload_poll_s N`` re-lists that run directory every N
+seconds and swaps a newer step into the engine without dropping
+traffic (a failed restore keeps the served weights). Differences:
 
-* weights come from ``--params_npz`` (a flat npz written by
-  ``multiverse_torch.bridge.save_params_npz``) or ``--random_init``;
-  ``--load_from``, the checkpoint-directory path and ``--reload_poll_s``
-  need the orbax checkpoint reader, which is not ported yet, and are
-  refused;
 * ``--device`` picks the device (default cuda); ``--num_devices`` other
-  than 1 is refused (one device only).
+  than 1 is refused (one device only);
+* checkpoints are the port's npz steps (``train/checkpoints.py``), not
+  orbax directories.
 
-    mvt-torch-serve out model --random_init --use_gnn --use_scene_enc \\
-        --use_beam_search --beam_size 20 --diverse_beam
+    mvt-torch-serve out model --use_gnn --use_scene_enc \\
+        --use_beam_search --beam_size 20 --diverse_beam --reload_poll_s 30
 
 On ``cuda`` with neither --compute_dtype nor --decode_quant given, it
 serves in bf16 with the int8a decode tier. max_batch defaults to 8 for
@@ -23,17 +27,24 @@ beam and 32 for --greedy (the JAX package's defaults).
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import sys
 import threading
+from typing import Optional, Tuple
 
 import torch
 
-from multiverse_torch.bridge import check_params, load_params_npz
+from multiverse_torch.bridge import load_params_tree
 from multiverse_torch.cli.common import add_model_args, config_from_args
 from multiverse_torch.models import Multiverse
 from multiverse_torch.serving.engine import ServingEngine
 from multiverse_torch.serving.server import PredictionServer
+from multiverse_torch.train.checkpoints import (
+    list_steps,
+    load_checkpoint,
+    run_dir,
+)
 
 PROG = "mvt-torch-serve"
 
@@ -46,9 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--runId", type=int, default=0)
     parser.add_argument("--load_best", action="store_true")
     parser.add_argument("--load_from", type=str, default=None,
-                        help="orbax checkpoint (not ported: refused)")
-    parser.add_argument("--params_npz", type=str, default=None,
-                        help="weights as a flat npz ('/'-joined names)")
+                        help="an npz checkpoint, or a save/best directory "
+                             "(its latest step)")
     parser.add_argument("--random_init", action="store_true",
                         help="serve seeded random weights (smoke tests)")
     parser.add_argument("--device", default="cuda")
@@ -73,8 +83,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="HTTP front end: one-event-loop asyncio "
                              "(default) or the ThreadingHTTPServer")
     parser.add_argument("--reload_poll_s", type=float, default=0.0,
-                        help="checkpoint hot reload (not ported: "
-                             "refused when > 0)")
+                        help="poll the run's checkpoint dir every N "
+                             "seconds and hot-swap newly saved weights "
+                             "into the serving engine without dropping "
+                             "traffic (0 = off; needs the run-directory "
+                             "load path, not --load_from/--random_init)")
     add_model_args(parser)
     # None-sentinel defaults: argparse records whether the user gave
     # these flags (in any spelling it accepts, prefixes included), so
@@ -102,24 +115,61 @@ def resolve_max_batch(max_batch, greedy: bool) -> int:
     return 32 if greedy else 8
 
 
-def load_model(args, cfg) -> Multiverse:
-    """The served weights: ``--params_npz`` or ``--random_init``."""
-    if args.load_from is not None or args.reload_poll_s > 0:
-        raise SystemExit(
-            f"{PROG}: --load_from and --reload_poll_s need the orbax "
-            "checkpoint reader, which is not ported yet; pass "
-            "--params_npz or --random_init")
-    model = Multiverse.init(cfg, seed=0)
-    if args.params_npz is not None:
-        loaded = load_params_npz(args.params_npz)
-        check_params(loaded, model)
-        return loaded
-    if not args.random_init:
-        raise SystemExit(
-            f"{PROG}: reading the run's checkpoint directory needs the "
-            "orbax checkpoint reader, which is not ported yet; pass "
-            "--params_npz or --random_init")
-    return model
+def checkpoint_dir(args) -> Optional[str]:
+    """The run directory's ``save`` (``best`` with --load_best) that the
+    weights come from; None with --random_init or --load_from."""
+    if args.random_init or args.load_from is not None:
+        return None
+    return os.path.join(run_dir(args.outbasepath, args.modelname,
+                                args.runId),
+                        "best" if args.load_best else "save")
+
+
+def load_model(args, cfg) -> Tuple[Multiverse, Optional[int]]:
+    """The served weights, pruned to ``cfg``'s parameters, and the step
+    of the run directory they came from (None for --random_init and
+    --load_from). Raises ``FileNotFoundError`` where there is no
+    checkpoint."""
+    template = Multiverse.init(cfg, seed=0)
+    if args.random_init:
+        return template, None
+    if args.load_from is not None:
+        return load_checkpoint(args.load_from, template), None
+    directory = checkpoint_dir(args)
+    steps = list_steps(directory)
+    if not steps:
+        raise FileNotFoundError("no checkpoint in %s" % directory)
+    step, path = steps[-1]
+    return load_checkpoint(path, template), step
+
+
+def reload_once(engine: ServingEngine, directory: str,
+                served_step: Optional[int]) -> Optional[int]:
+    """One poll of the hot reload: list ``directory`` afresh and, when
+    its latest step is not the served one, load it and swap it into
+    ``engine`` (``update_params`` prunes it to the served model). A
+    failed restore keeps the served weights and is retried at the next
+    poll. Returns the step served after the poll."""
+    try:
+        steps = list_steps(directory)
+        if not steps or steps[-1][0] == served_step:
+            return served_step
+        step, path = steps[-1]
+        engine.update_params(load_params_tree(path))
+    except Exception as exc:   # keep serving the old weights
+        print(f"{PROG}: reload failed ({exc}); keeping current weights",
+              file=sys.stderr)
+        return served_step
+    print(f"{PROG}: hot-reloaded checkpoint step {step}", file=sys.stderr)
+    return step
+
+
+def reload_loop(engine: ServingEngine, directory: str,
+                served_step: Optional[int], poll_s: float,
+                stop: threading.Event) -> None:
+    """:func:`reload_once` every ``poll_s`` seconds until ``stop``."""
+    while not stop.wait(poll_s):
+        served_step = reload_once(engine, directory, served_step)
 
 
 def main(argv=None) -> None:
@@ -133,7 +183,11 @@ def main(argv=None) -> None:
     args.max_batch = resolve_max_batch(args.max_batch, args.greedy)
     cfg = config_from_args(args).replace(
         use_beam_search=not args.greedy).validate()
-    model = load_model(args, cfg)
+    reload_dir = checkpoint_dir(args)
+    if args.reload_poll_s > 0 and reload_dir is None:
+        raise SystemExit(f"{PROG}: --reload_poll_s needs the run-directory "
+                         "load path (drop --load_from/--random_init)")
+    model, served_step = load_model(args, cfg)
 
     engine = ServingEngine(
         model, cfg, max_batch=args.max_batch,
@@ -145,6 +199,13 @@ def main(argv=None) -> None:
           f"device={engine.device})...", file=sys.stderr)
     dt = engine.warmup()
     print(f"{PROG}: warm in {dt:.1f}s", file=sys.stderr)
+
+    stop_reload = threading.Event()
+    if args.reload_poll_s > 0:
+        threading.Thread(
+            target=reload_loop, name="mvt-serve-reload", daemon=True,
+            args=(engine, reload_dir, served_step, args.reload_poll_s,
+                  stop_reload)).start()
 
     if args.server_backend == "asyncio":
         from multiverse_torch.serving.aserver import AsyncPredictionServer
@@ -172,6 +233,7 @@ def main(argv=None) -> None:
     except KeyboardInterrupt:
         pass
     finally:
+        stop_reload.set()
         server.close()
 
 

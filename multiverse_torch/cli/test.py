@@ -3,7 +3,8 @@
 The counterpart of ``mvt-test`` (``multiverse_tpu/cli/test.py``;
 reference: code/test.py): loads the test split, restores the port's
 checkpoint (the latest of ``save``, or of ``best`` with
-``--load_best``, or ``--load_from`` an npz file or directory), runs the
+``--load_best``, or ``--load_from`` an npz file or directory, pruned to
+the configuration's parameters as the JAX package prunes), runs the
 full evaluate loop and prints the metric table in the same format.
 ``--device`` picks the device (default cuda). With
 ``--use_beam_search`` and ``--save_output`` the beam ids and log-probs
@@ -16,7 +17,6 @@ import argparse
 
 import torch
 
-from multiverse_torch.bridge import check_params, load_params_npz
 from multiverse_torch.cli.common import add_model_args, config_from_args
 from multiverse_torch.cli.train import resolve_device
 from multiverse_torch.data.dataset import batch_to_device, read_data
@@ -24,8 +24,8 @@ from multiverse_torch.inference import beam_forward
 from multiverse_torch.models import BeamOutputs, Multiverse
 from multiverse_torch.train.checkpoints import (
     CheckpointManager,
+    load_checkpoint,
     process_out_dirs,
-    resolve_checkpoint,
 )
 from multiverse_torch.train.evaluate import evaluate
 from multiverse_torch.train.trainer import make_eval_step
@@ -68,15 +68,15 @@ def main(argv=None) -> dict:
     cfg = config_from_args(args)
     test_data = read_data(args.prepropath, "test", cfg)
 
+    # a checkpoint with more grid scales than the model is pruned to it
+    # (the published flow trains --use_grids 1,1 and tests at 1,0)
+    template = Multiverse.init(cfg)
     if args.load_from is not None:
-        path = resolve_checkpoint(args.load_from)
+        model = load_checkpoint(args.load_from, template)
     else:
         ckpt = CheckpointManager(process_out_dirs(
             args.outbasepath, args.modelname, args.runId))
-        path = resolve_checkpoint(ckpt.best_dir if args.load_best
-                                  else ckpt.save_dir)
-    model = load_params_npz(path)
-    check_params(model, Multiverse.init(cfg))
+        model = ckpt.restore_params(template, best=args.load_best)
     model = model.to(device)
     eval_step = make_eval_step(cfg)
     # eval_fn and beam_fn get the same batch back to back: upload once

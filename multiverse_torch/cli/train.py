@@ -9,9 +9,11 @@ and ``val_perf.json``. Differences:
 * ``--device`` picks the device (default cuda; there is no CPU fallback,
   ``--device cpu`` runs the plain PyTorch versions of the kernels);
 * one device: ``--model_parallel`` other than 1 is refused;
-* checkpoints are the port's npz files (``train/checkpoints.py``), each
-  a ``--params_npz`` file for the inference and serving commands;
-  ``--load``/``--load_best``/``--load_from`` read them, not orbax runs;
+* checkpoints are the port's npz files (``train/checkpoints.py``),
+  which ``mvt-torch-test``, ``mvt-torch-serve`` and
+  ``mvt-torch-multifuture-inference`` read from the run directory or as
+  a file; ``--load``/``--load_best``/``--load_from`` read them (a
+  checkpoint with more grid scales pruned to the model), not orbax runs;
 * ``--profile`` writes a ``torch.profiler`` trace.
 
 On the card with ``--compute_dtype bfloat16`` the class decoder's graph
@@ -31,7 +33,6 @@ import time
 
 import torch
 
-from multiverse_torch.bridge import check_params, load_params_npz
 from multiverse_torch.cli.common import (
     LossBuffer,
     add_model_args,
@@ -43,8 +44,8 @@ from multiverse_torch.data.prefetch import prefetch
 from multiverse_torch.models import Multiverse
 from multiverse_torch.train.checkpoints import (
     CheckpointManager,
+    load_checkpoint,
     process_out_dirs,
-    resolve_checkpoint,
 )
 from multiverse_torch.train.evaluate import evaluate
 from multiverse_torch.train.trainer import (
@@ -128,13 +129,13 @@ def main(argv=None) -> None:
         f.write(cfg.to_json())
     ckpt = CheckpointManager(outpath)
 
+    # a checkpoint with more grid scales than the model is pruned to it
     loaded = None
     if args.load_from is not None:
-        loaded = load_params_npz(resolve_checkpoint(args.load_from))
+        loaded = load_checkpoint(args.load_from, model)
     elif args.load or args.load_best:
-        loaded = ckpt.restore_params(best=args.load_best)
+        loaded = ckpt.restore_params(model, best=args.load_best)
     if loaded is not None:
-        check_params(loaded, model)
         model = loaded.requires_grad_(True)
     model = model.to(device)
     tx = build_optimizer(cfg, train_data.num_examples)

@@ -34,7 +34,6 @@ import time
 
 import torch
 
-from multiverse_torch.bridge import check_params, load_params_npz
 from multiverse_torch.cli.common import (
     LossBuffer,
     add_model_args,
@@ -53,8 +52,8 @@ from multiverse_torch.models.simaug import (
 )
 from multiverse_torch.train.checkpoints import (
     CheckpointManager,
+    load_checkpoint,
     process_out_dirs,
-    resolve_checkpoint,
 )
 from multiverse_torch.train.evaluate import evaluate
 from multiverse_torch.train.trainer import build_optimizer, make_eval_step
@@ -166,13 +165,13 @@ def main(argv=None) -> None:
         f.write(cfg.to_json())
     ckpt = CheckpointManager(outpath)
 
+    # a checkpoint with more grid scales than the model is pruned to it
     loaded = None
     if args.load_from is not None:
-        loaded = load_params_npz(resolve_checkpoint(args.load_from))
+        loaded = load_checkpoint(args.load_from, model)
     elif args.load or args.load_best:
-        loaded = ckpt.restore_params(best=args.load_best)
+        loaded = ckpt.restore_params(model, best=args.load_best)
     if loaded is not None:
-        check_params(loaded, model)
         model = loaded.requires_grad_(True)
     model = model.to(device)
     # new saves continue above any steps already in this run dir

@@ -279,9 +279,10 @@ def synthesize_prepro(path: str, cfg: MultiverseConfig, n_train: int,
                       n_val: int, seed: int = 0) -> str:
     """Write ``data_train.npz`` and ``data_val.npz`` under ``path`` with
     the keys ``mvt-preprocess`` writes (see :func:`synthesize_split`;
-    the two splits use seeds ``seed`` and ``seed + 1``), so the port can
-    train where ``mvt-preprocess`` (which needs jax) is not installed.
-    Returns ``path``."""
+    the two splits use seeds ``seed`` and ``seed + 1``): synthetic
+    training data with no raw files. Data in the reference's on-disk
+    format (trajectory TSVs, scene class maps) is preprocessed by the
+    port's own ``mvt-torch-preprocess``. Returns ``path``."""
     os.makedirs(path, exist_ok=True)
     for split, n, s in (("train", n_train, seed), ("val", n_val, seed + 1)):
         np.savez(os.path.join(path, "data_%s.npz" % split),

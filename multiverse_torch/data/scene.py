@@ -1,7 +1,8 @@
 """Scene semantic-segmentation inputs: ADE20k id remap and one-hot masks.
 
-The three numpy helpers of ``multiverse_tpu/data/scene.py`` that
-multi-future inference needs (that package imports jax at load time).
+The port's copy of the three numpy helpers of
+``multiverse_tpu/data/scene.py`` (that package imports jax at load
+time), used by multi-future inference and by preprocessing.
 """
 
 from __future__ import annotations

@@ -15,6 +15,7 @@ from __future__ import annotations
 import glob
 import os
 import pickle
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -393,11 +394,13 @@ def run_multifuture_inference(
     inputs: MultifutureInputs,
     cfg: MultiverseConfig,
     batch_size: int = 16,
+    T_max: Optional[int] = None,
     greedy: bool = False,
     center_only: bool = False,
     need_prob: bool = True,
     prob_fetch_dtype: str = "float32",
     device="cuda",
+    timings: Optional[dict] = None,
 ) -> Tuple[Dict[str, list], Dict[str, tuple]]:
     """Decode every trajectory on ``device``; return (output_data,
     beam_prob) in the reference pickle formats.
@@ -414,6 +417,17 @@ def run_multifuture_inference(
 
     Two batches are in flight: while the device decodes batch b, a
     resolver thread waits for batch b-1's copies and packs its pickles.
+
+    Every batch decodes ``T_max`` steps (default: the longest GT
+    future); a ``T_max`` below a trajectory's future truncates its
+    output to ``T_max`` points.
+
+    ``timings``: an optional dict the run adds its per-phase wall time
+    to, as the JAX function does: "build_s" (host batch packing and the
+    decode's enqueue), "fetch_s" (the blocking wait for the device ->
+    host copies: on cuda it includes the device work still running),
+    "fetch_bytes" (the bytes copied), "pack_s" (host upcast and
+    pickle-format assembly) and "batches".
     """
     if prob_fetch_dtype not in ("float32", "float16"):
         raise ValueError(
@@ -428,9 +442,13 @@ def run_multifuture_inference(
         grid_centers(cfg.video_h, cfg.video_w, h, w).reshape(-1, 2),
         dtype=torch.float32, device=device)
     N = len(inputs.traj_ids)
-    T = int(inputs.pred_lengths.max())
+    T = T_max or int(inputs.pred_lengths.max())
     K = cfg.beam_size
     fetch_dt = torch.float16 if prob_fetch_dtype == "float16" else None
+    if timings is not None:
+        for k in ("build_s", "fetch_s", "fetch_bytes", "pack_s",
+                  "batches"):
+            timings.setdefault(k, 0.0)
 
     def dispatch(batch: Batch):
         """Enqueue one batch; return host copies and a ready event."""
@@ -462,18 +480,23 @@ def run_multifuture_inference(
     beam_prob: Dict[str, tuple] = {}
 
     def resolve(idxs, host, ready):
+        t0 = time.perf_counter()
         if ready is not None:
             ready.synchronize()
             # copy out of page-locked memory: the pickles keep views of
             # these arrays for the whole run
             host = [t.numpy().copy() for t in host]
+        if timings is not None:
+            timings["fetch_s"] += time.perf_counter() - t0
+            timings["fetch_bytes"] += sum(a.nbytes for a in host)
+            t0 = time.perf_counter()
         trajs = host[0]
         logits = None
         if need_prob and not greedy:
             logprobs, logits = host[1], np.asarray(host[2], np.float32)
         for a, n in enumerate(idxs):
             traj_id = inputs.traj_ids[n]
-            pred_len = int(inputs.pred_lengths[n])
+            pred_len = min(int(inputs.pred_lengths[n]), T)
             if greedy:
                 output_data[traj_id] = [list(trajs[a, :pred_len])
                                         for _ in range(K)]
@@ -483,16 +506,22 @@ def run_multifuture_inference(
             if logits is not None:
                 beam_prob[traj_id] = (logits[a:a + 1, :, :pred_len],
                                       logprobs[a:a + 1])
+        if timings is not None:
+            timings["pack_s"] += time.perf_counter() - t0
+            timings["batches"] += 1
 
     futures: list = []
     with ThreadPoolExecutor(max_workers=1) as pool:
         for lo in range(0, N, batch_size):
+            t0 = time.perf_counter()
             idxs = np.arange(lo, min(lo + batch_size, N))
             pad = batch_size - len(idxs)
             padded = np.concatenate([idxs, np.full(pad, idxs[-1])]) \
                 if pad else idxs
             host, ready = dispatch(make_batch(inputs, padded, cfg))
             futures.append(pool.submit(resolve, idxs, host, ready))
+            if timings is not None:
+                timings["build_s"] += time.perf_counter() - t0
             if len(futures) >= 2:
                 futures.pop(0).result()
         for f in futures:

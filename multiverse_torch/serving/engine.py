@@ -39,7 +39,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from multiverse_torch.bridge import check_params
+from multiverse_torch.bridge import check_params, prune_to_template
 from multiverse_torch.config import MultiverseConfig
 from multiverse_torch.geometry import grid_centers, xy_to_cell
 from multiverse_torch.inference import (
@@ -292,12 +292,15 @@ class ServingEngine:
 
     def update_params(self, params) -> None:
         """Swap the served weights without dropping traffic. The new
-        module (same names and shapes) is moved to the device and the
+        module (or nested mapping of arrays) is pruned to the served
+        model's names (a checkpoint with more grid scales loads, as in
+        the JAX package's restore), moved to the device and the
         reference swapped between batch dispatches; batches already
         dispatched finish on the weights they started with."""
         try:
+            params = prune_to_template(params, self._params)
             check_params(params, self._params)
-        except ValueError as exc:
+        except (KeyError, ValueError) as exc:
             raise ValueError(
                 "update_params: the new weights do not match the served "
                 "model (a different architecture needs a new engine): "

@@ -5,8 +5,13 @@ The port's counterpart of ``multiverse_tpu/train/checkpoints.py``
 best}, code/train.py:170-171 for the twin savers keeping the latest 5).
 A save holds the parameters only, as ``mvt-train`` saves them: one flat
 npz per step (``step_00000300.npz``) in ``bridge.save_params_npz``'s
-format, so a trained checkpoint is a ``--params_npz`` file for
-``mvt-torch-multifuture-inference`` and ``mvt-torch-serve``. The JAX
+format, written under a temporary name and renamed, so a reader never
+sees half a file. Every command of the port reads them the same way
+(:func:`load_checkpoint`): an npz file, or the latest step of a
+``save``/``best`` directory, pruned to the configuration's parameters
+as the JAX package restores a checkpoint that holds more grid scales
+than the model uses. ``mvt-torch-serve --reload_poll_s`` polls a
+``save``/``best`` directory for new steps (:func:`list_steps`). The JAX
 package's orbax directories are not read by the port yet.
 """
 
@@ -16,13 +21,20 @@ import os
 import re
 from typing import List, Optional, Tuple
 
-from multiverse_torch.bridge import load_params_npz, save_params_npz
+from multiverse_torch.bridge import (
+    load_params_tree,
+    prune_to_template,
+    save_params_npz,
+)
+from multiverse_torch.models import Multiverse
 
 _STEP = re.compile(r"^step_(\d+)\.npz$")
 
 
 def list_steps(directory: str) -> List[Tuple[int, str]]:
-    """(step, path) of every checkpoint in ``directory``, by step."""
+    """(step, path) of every checkpoint in ``directory``, by step, read
+    afresh on every call. A save still under its temporary name
+    (``step_X.npz.tmp.npz``) is not a step."""
     if not os.path.isdir(directory):
         return []
     found = []
@@ -47,6 +59,14 @@ def resolve_checkpoint(path: str) -> str:
             "%s looks like an orbax checkpoint of the JAX package; the "
             "port reads only its own npz checkpoints" % path)
     raise FileNotFoundError("no checkpoint in %s" % path)
+
+
+def load_checkpoint(path: str, template: Multiverse) -> Multiverse:
+    """The parameters of ``path`` (see :func:`resolve_checkpoint`) that
+    ``template`` has (``Multiverse.init(cfg)``), as a module on the CPU:
+    ``bridge.prune_to_template``'s names, errors and checks."""
+    return prune_to_template(load_params_tree(resolve_checkpoint(path)),
+                             template)
 
 
 class CheckpointManager:
@@ -74,14 +94,20 @@ class CheckpointManager:
         steps = list_steps(self.best_dir if best else self.save_dir)
         return steps[-1][0] if steps else None
 
-    def restore_params(self, best: bool = False):
-        """The latest saved parameters as a (frozen) Multiverse."""
-        return load_params_npz(resolve_checkpoint(
-            self.best_dir if best else self.save_dir))
+    def restore_params(self, template: Multiverse, best: bool = False):
+        """The latest saved parameters, pruned to ``template``, as a
+        (frozen) Multiverse."""
+        return load_checkpoint(self.best_dir if best else self.save_dir,
+                               template)
+
+
+def run_dir(outbasepath: str, modelname: str, run_id: int) -> str:
+    """outbase/model/runId (reference: pred_utils.py:98-107)."""
+    return os.path.join(outbasepath, modelname, str(run_id).zfill(2))
 
 
 def process_out_dirs(outbasepath: str, modelname: str, run_id: int) -> str:
-    """outbase/model/runId layout (reference: pred_utils.py:98-107)."""
-    outpath = os.path.join(outbasepath, modelname, str(run_id).zfill(2))
+    """:func:`run_dir`, made if it is not there."""
+    outpath = run_dir(outbasepath, modelname, run_id)
     os.makedirs(outpath, exist_ok=True)
     return outpath

@@ -176,7 +176,7 @@ def test_cli_greedy_and_int8a(tmp_path):
         str(tmp_path), cfg, np.random.RandomState(1), num_traj=3,
         max_pred_len=6)
     out = str(tmp_path / "o.traj.p")
-    args = [traj_p, mf_p, out, "--params_npz", npz, "--device", "cpu",
+    args = [npz, traj_p, mf_p, out, "--device", "cpu",
             "--scene_feat_path", scene_p, "--scene_id2name", id2name,
             "--num_out", "4", "--use_gnn", "--use_scene_enc",
             "--scene_h", "12", "--scene_w", "16", "--scene_class", "5",

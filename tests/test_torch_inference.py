@@ -217,7 +217,7 @@ def test_cli_writes_both_pickles_and_rejects_unported_modes(tmp_path,
         str(tmp_path), cfg, np.random.RandomState(1), num_traj=3,
         max_pred_len=6)
     out, prob = str(tmp_path / "o.traj.p"), str(tmp_path / "o.prob.p")
-    args = [traj_p, mf_p, out, "--params_npz", npz, "--device", "cpu",
+    args = [npz, traj_p, mf_p, out, "--device", "cpu",
             "--save_prob_file", prob, "--scene_feat_path", scene_p,
             "--scene_id2name", id2name, "--num_out", "4", "--use_gnn",
             "--use_scene_enc", "--diverse_beam", "--diverse_gamma", "0.01",
@@ -250,7 +250,8 @@ def test_cli_writes_both_pickles_and_rejects_unported_modes(tmp_path,
     # greedy decode has no beams for the .prob.p output
     with pytest.raises(SystemExit, match="requires beam search"):
         tcli.main(args + ["--greedy"])
-    with pytest.raises(ValueError, match="do not match"):
+    with pytest.raises(ValueError, match=r"params\.scene_conv1\.b: "
+                       r"checkpoint shape \(8,\) != model shape \(4,\)"):
         tcli.main(args[:-2] + ["--scene_conv_dim", "4"])
 
 
@@ -272,8 +273,8 @@ def test_port_never_imports_jax():
     the port and chip_smoke.py import (SimAug's and the scoring
     modules among them), the beam, greedy, int8a and int8_dyn (beam and
     greedy) paths run on the CPU, and so do one bf16 train step through
-    mvt-torch-train's own pieces, one bf16 SimAug multiview step and
-    one minADE scoring."""
+    mvt-torch-train's own pieces, one bf16 SimAug multiview step, one
+    minADE scoring and one preprocessed split."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for name in ('jax', 'jaxlib', 'multiverse_tpu'):\n"
@@ -315,7 +316,8 @@ def test_port_never_imports_jax():
         "for name in ('models.simaug', 'data.multiview', 'cli.train_simaug',\n"
         "             'eval.multifuture', 'eval.sdd',\n"
         "             'cli.multifuture_eval_trajs',\n"
-        "             'cli.multifuture_eval_trajs_prob', 'cli.evaluate_sdd'):\n"
+        "             'cli.multifuture_eval_trajs_prob', 'cli.evaluate_sdd',\n"
+        "             'data.preprocess', 'data.vocab', 'cli.preprocess'):\n"
         "    assert 'multiverse_torch.' + name in names, name\n"
         "import dataclasses\n"
         "from multiverse_torch.data import multiview\n"
@@ -338,6 +340,15 @@ def test_port_never_imports_jax():
         "    {'a_cam1': [[[0.0, 0.0]]]}, None,\n"
         "    gt_trajs={'a_cam1': {0: {'x_agent_traj': [(0, 1, 3.0, 4.0)]}}})\n"
         "assert m['minade_45-degree'] == 5.0\n"
+        "import os, tempfile\n"
+        "from multiverse_torch.data import preprocess\n"
+        "with tempfile.TemporaryDirectory() as tmp:\n"
+        "    os.makedirs(os.path.join(tmp, 'train'))\n"
+        "    with open(os.path.join(tmp, 'train', 'v.txt'), 'w') as f:\n"
+        "        f.writelines('%d\\t1\\t%d\\t9\\n' % (12 * t, 40 * t)\n"
+        "                     for t in range(20))\n"
+        "    assert preprocess.preprocess_split(tmp, 'train',\n"
+        "        os.path.join(tmp, 'd.npz'), preprocess.PreprocessOptions())\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
         "             and m.startswith(('jax', 'multiverse_tpu')))\n"
         "print('MODULES', len(names), 'JAX_MODULES', bad)\n"

@@ -303,9 +303,9 @@ def test_serving_dtype_resolution_flag_spellings():
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--load_from", "ckpt", "--random_init"], "orbax"),
-    (["--random_init", "--reload_poll_s", "5"], "orbax"),
-    ([], "orbax"),
+    (["--random_init", "--reload_poll_s", "5"], "--reload_poll_s needs"),
+    (["--load_from", "ckpt", "--reload_poll_s", "5"],
+     "--reload_poll_s needs"),
     (["--random_init", "--num_devices", "4"], "--num_devices 4"),
 ])
 def test_serve_cli_refuses_what_is_not_ported(extra, match):
@@ -364,7 +364,7 @@ def test_serve_cli_loads_npz_weights(tmp_path):
 
     args = tserve.build_parser().parse_args(
         ["out", "model", "--device", "cpu", "--use_gnn", "--use_scene_enc",
-         "--params_npz", str(tmp_path / "p.npz"), "--emb_size", "8",
+         "--load_from", str(tmp_path / "p.npz"), "--emb_size", "8",
          "--enc_hidden_size", "16", "--dec_hidden_size", "16",
          "--scene_conv_dim", "8"])
     args.compute_dtype, args.decode_quant = tserve.resolve_serving_dtypes(
@@ -372,9 +372,12 @@ def test_serve_cli_loads_npz_weights(tmp_path):
     cfg = tserve.config_from_args(args)
     model = params_from_jax(jax.tree_util.tree_map(
         np.asarray, jax_init_params(jax.random.PRNGKey(2), cfg)))
-    save_params_npz(model, args.params_npz)
-    loaded = tserve.load_model(args, cfg)
-    for (n, a), (m, b) in zip(loaded.named_parameters(),
-                              model.named_parameters()):
-        assert n == m
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    save_params_npz(model, args.load_from)
+    loaded, step = tserve.load_model(args, cfg)
+    assert step is None
+    # the loaded module follows the configuration's order of names
+    want = dict(model.named_parameters())
+    got = dict(loaded.named_parameters())
+    assert sorted(got) == sorted(want)
+    for n, b in want.items():
+        torch.testing.assert_close(got[n], b, rtol=0, atol=0)

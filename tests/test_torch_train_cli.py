@@ -4,8 +4,8 @@ by the JAX ``mvt-preprocess`` yield the JAX batches, batch for batch in
 the same shuffle order; the JAX ``read_data`` reads what
 ``synthesize_prepro`` writes; ``mvt-torch-train --device cpu`` writes
 config.json, the {save,best} checkpoints and val_perf.json; its best
-checkpoint decodes through ``mvt-torch-multifuture-inference
---params_npz``, evaluates through ``mvt-torch-test`` and round-trips
+checkpoint decodes through ``mvt-torch-multifuture-inference``
+(its ``model_path``), evaluates through ``mvt-torch-test`` and round-trips
 into the JAX model."""
 
 import json
@@ -141,8 +141,8 @@ def test_best_checkpoint_decodes_and_round_trips(trained, tmp_path,
         str(tmp_path), cfg, np.random.RandomState(1), num_traj=3,
         max_pred_len=6)
     out = str(tmp_path / "o.traj.p")
-    tinf_cli.main([traj_p, mf_p, out, "--params_npz", best, "--device",
-                   "cpu", "--scene_feat_path", scene_p, "--scene_id2name",
+    tinf_cli.main([best, traj_p, mf_p, out, "--device", "cpu",
+                   "--scene_feat_path", scene_p, "--scene_id2name",
                    id2name, "--num_out", "3", "--use_gnn", "--use_scene_enc",
                    "--scene_h", "12", "--scene_w", "16", "--scene_class", "5",
                    "--emb_size", "8", "--enc_hidden_size", "16",
