@@ -161,6 +161,35 @@
    pickles checked), and a second run with ``timings``: traj/s and the
    build, fetch and pack seconds.
 
+9. Multi-device phase, on phase 6's data and phase 8's run directory
+   (``multiverse_torch.parallel``; two ranks on one card time-share it,
+   so nothing here is a scaling figure). Two ``gloo`` ranks on cuda:0
+   (NCCL refuses two ranks on one device), spawned by ``launch``, each
+   with its block of the train batch (10 of 20): the sharded train step
+   (``sharded_loss_and_grads``) at the published configuration in bf16
+   on the newest saved step, its averaged loss within 1e-2 and every
+   averaged gradient within 2e-2 relative L2 of the single-process
+   step's on the same batch and weights, the updated parameters and the
+   update itself each within 2e-2 relative L2, K4/K5 12 launches a rank
+   a step, two all-reduces a step; 15 timed steps (steps/s, each
+   rank's profiler busy time, the card's idle share). The sharded beam
+   decode (bf16, K1) of 16 trajectories of the trained run: beam ids
+   agree with the single-process decode's in at least DP_BEAM_SAME_MIN
+   of beams, the log-probs of those within 5e-3, K1 12 launches a
+   rank. A
+   ``ServingEngine`` over the two ranks (bf16 + int8a, max_batch 8,
+   K = 20) on the next-newest step: 32 requests submitted together
+   (a batch of more than 4 fills rank 1's rows) equal to the 1-rank
+   engine's answers within 1e-3 (p50 latency of both printed), then
+   ``update_params`` with the newest step and again, now unlike the old
+   weights' answers; K3 the same count on both ranks. Then
+   ``mvt-torch-train``'s own ``main`` for one epoch (20 steps) over
+   every visible GPU (``make_mesh_for_batch``, nccl; world 1 on one
+   card, in this process with no group and no collective, its K4/K5/K1
+   launches counted), and in an NCCL group over those GPUs (of one, on
+   one card) the sharded step's and the single-process step's buffered
+   steps/s and idle share, alternated twice: the cost of the group.
+
 Prints one JSON line describing the kernels, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero;
 without CUDA it exits nonzero before printing anything.
@@ -181,6 +210,7 @@ and K5 the same way.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib.util
 import json
 import os
@@ -196,6 +226,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multiverse_torch import inference
 from multiverse_torch.cli import multifuture_inference as inference_cli
@@ -204,7 +235,8 @@ from multiverse_torch.cli import serve
 from multiverse_torch.cli import train as train_cli
 from multiverse_torch.cli import train_simaug as simaug_cli
 from multiverse_torch.config import MultiverseConfig
-from multiverse_torch.bridge import load_params_npz
+from multiverse_torch import parallel
+from multiverse_torch.bridge import load_params_npz, load_params_tree
 from multiverse_torch.data.dataset import batch_to_device, read_data
 from multiverse_torch.data.multiview import (
     MultiviewDataset,
@@ -271,7 +303,11 @@ from multiverse_torch.ops.quant import (
 )
 from multiverse_torch.serving.aserver import AsyncPredictionServer
 from multiverse_torch.serving.client import PredictionClient
-from multiverse_torch.serving.engine import RawInputs, rasterize_batch
+from multiverse_torch.serving.engine import (
+    RawInputs,
+    ServingEngine,
+    rasterize_batch,
+)
 from multiverse_torch.serving.server import PredictionServer
 from multiverse_torch.train import trainer
 from multiverse_torch.train.checkpoints import (
@@ -1576,8 +1612,8 @@ class StepRecorder:
         self.make_step = make_step
         self.losses = []
 
-    def __call__(self, cfg, tx):
-        step = self.make_step(cfg, tx)
+    def __call__(self, *args):
+        step = self.make_step(*args)
 
         def recorded(*args, **kw):
             parts = step(*args, **kw)
@@ -1715,10 +1751,10 @@ def train_phase(dev, tmp: str) -> dict:
     evals' K1."""
     cfg = train_config()
     prepro = preprocess_phase(tmp, cfg)
-    rec = StepRecorder(trainer.make_train_step)
+    rec = StepRecorder(parallel.make_sharded_train_step)
     reset_launches()
     t0 = time.perf_counter()
-    with mock.patch.object(train_cli, "make_train_step", rec):
+    with mock.patch.object(train_cli, "make_sharded_train_step", rec):
         train_cli.main([prepro, os.path.join(tmp, "out"), "multiverse",
                         *TRAIN_FLAGS])
     torch.cuda.synchronize()
@@ -1764,8 +1800,9 @@ def train_phase(dev, tmp: str) -> dict:
     tx = trainer.build_optimizer(cfg, TRAIN_EXAMPLES)
     opt_state = tx.init(dict(model.named_parameters()))
     step = trainer.make_train_step(cfg, tx)
-    step_throughput("train phase", lambda: step(model, opt_state, batch),
-                    cfg.batch_size)
+    launches["throughput"] = step_throughput(
+        "train phase", lambda: step(model, opt_state, batch),
+        cfg.batch_size)
     return launches
 
 
@@ -1932,6 +1969,458 @@ def train_further(dev, tmp: str, save_dir: str, launches: dict):
     print("lifecycle: %d more train steps on step %d (last loss %.4f) "
           "saved as %s" % (RELOAD_STEPS, latest, loss, path))
     return new_step, path, renamed[0]
+
+
+# ---------------------------------------------------------- multi-device
+
+# phase 9's gates: the 2-rank step against the single-process one (the
+# train phase's kernel-vs-plain gates), the sharded beam decode's ids
+# against the single-process decode's, with the log-probs of the beams
+# that agree, and the 2-rank engine's answers against the 1-rank one's
+# (phase 8's). The ids agreed in 1.0000 of beams, the log-probs exactly,
+# on an NVIDIA H100 80GB HBM3 at 700 W; the share leaves room for bf16
+# encoder convolutions that round differently at 8 rows than at 16,
+# while a slice or gather in the wrong order agrees in a few beams
+DP_BEAM_SAME_MIN = 0.99
+DP_BEAM_LOGPROB_ATOL = 5e-3
+DP_SERVE_ATOL = 1e-3
+DP_UPDATE_RTOL = 2e-2
+DP_WORLD = 2
+DP_REQUESTS, DP_MAX_BATCH = 32, 8
+
+
+def dp_train_batch(prepro: str, cfg):
+    """The first batch_size train examples (a host Batch)."""
+    return read_data(prepro, "train", cfg).make_batch(
+        list(range(cfg.batch_size)))[0]
+
+
+def dp_requests(cfg, seed: int = 9):
+    rng = np.random.RandomState(seed)
+    obs = [np.stack([rng.uniform(0, cfg.video_w, cfg.obs_len),
+                     rng.uniform(0, cfg.video_h, cfg.obs_len)],
+                    axis=1).astype(np.float32) for _ in range(DP_REQUESTS)]
+    return obs, rng.randint(1, cfg.pred_len + 1, DP_REQUESTS)
+
+
+def drive_engine(engine, obs, pred_lens) -> list:
+    """The DP_REQUESTS requests submitted together, so that batches fill
+    past the first rank's block; returns [(trajs, logprobs)] in request
+    order."""
+    handles = [engine.submit(o, pred_len=int(n))
+               for o, n in zip(obs, pred_lens)]
+    out = []
+    for h in handles:
+        if not h.event.wait(120):
+            raise TimeoutError("multi-device: no answer within 120 s")
+        if h.error is not None:
+            raise h.error
+        out.append((h.result.trajs, h.result.logprobs))
+    return out
+
+
+def numpy_named(model) -> dict:
+    return {n: p.detach().float().cpu().numpy()
+            for n, p in model.named_parameters()}
+
+
+def update_gap(before: dict, got: dict, want: dict) -> float:
+    """The worst relative L2, over the parameters, of the update
+    ``got - before`` against the update ``want - before``."""
+    return max(float(np.linalg.norm((got[n] - before[n])
+                                    - (want[n] - before[n])))
+               / max(float(np.linalg.norm(want[n] - before[n])), 1e-30)
+               for n in want)
+
+
+def timed_steps(run_step, steps: int = 10, profiled: int = 3) -> dict:
+    """Every rank: 2 warm-up steps, ``steps`` with one sync (steps/s),
+    then ``profiled`` under torch.profiler (this rank's device busy time
+    a step and the window a step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        run_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        run_step()
+    torch.cuda.synchronize()
+    steps_s = steps / (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(profiled):
+            run_step()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    return {"steps_s": steps_s, "busy_ms": device_busy_ms(prof) / profiled,
+            "window_ms": window_ms / profiled}
+
+
+def dp_rank(mesh, spec: dict) -> dict:
+    """One rank of phase 9's 2-rank gloo group on cuda:0: the sharded
+    train step (its gradients, one counted step, then timed steps), the
+    sharded beam decode (K1) of the trained run, and a ServingEngine
+    over the group (K3) across one update_params. Returns this rank's
+    kernel launches and, on rank 0, what the parent checks."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the wall clock is shared by the processes: the first lap is the
+    # spawn, the imports and the rendezvous
+    out = {"rank": mesh.rank,
+           "seconds": {"start": round(time.time() - spec["launched"], 3)}}
+    t0 = time.perf_counter()
+
+    def lap(what: str) -> None:
+        nonlocal t0
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out["seconds"][what] = round(now - t0, 3)
+        t0 = now
+
+    cfg = train_config()
+    shard = parallel.shard_batch(mesh, dp_train_batch(spec["prepro"], cfg))
+    tx = trainer.build_optimizer(cfg, TRAIN_EXAMPLES)
+    model, opt_state = parallel.init_sharded_train_state(
+        load_checkpoint(spec["train_ckpt"], Multiverse.init(cfg)), tx, mesh)
+    lap("set-up")
+    grads, parts = parallel.sharded_loss_and_grads(model, shard, cfg, mesh)
+    if mesh.is_main:
+        out["loss"] = float(parts["total"])
+        out["grads"] = {n: g.float().cpu().numpy() for n, g in grads.items()}
+    del grads
+    step = parallel.make_sharded_train_step(cfg, tx, mesh)
+    calls = mesh.collectives
+    reset_launches()
+    step(model, opt_state, shard)
+    torch.cuda.synchronize()
+    out["K4"], out["K5"] = gnn_dense_fwd.launches, gnn_dense_bwd.launches
+    out["step_collectives"] = mesh.collectives - calls
+    if mesh.is_main:
+        out["params"] = numpy_named(model)
+    lap("gradients and one step")
+    out["timing"] = timed_steps(lambda: step(model, opt_state, shard))
+    del model, opt_state
+    lap("15 timed steps")
+
+    bcfg = flagship_config()
+    bmodel = parallel.replicate(mesh, load_checkpoint(
+        spec["beam_ckpt"], Multiverse.init(bcfg)))
+    reset_launches()
+    beam, _ = parallel.make_sharded_beam_step(bcfg, mesh)(
+        bmodel, parallel.shard_batch(mesh, spec["beam_batch"]))
+    torch.cuda.synchronize()
+    out["K1"] = decode_step_gathered.launches
+    if mesh.is_main:
+        out["ids"] = beam.ids.cpu().numpy()
+        out["logprobs"] = beam.logprobs.cpu().numpy()
+    del bmodel, beam
+    lap("beam decode")
+
+    scfg = flagship_config(decode_quant="int8a")
+    reset_launches()
+    engine = ServingEngine(
+        load_checkpoint(spec["serve_old"], Multiverse.init(scfg)), scfg,
+        max_batch=DP_MAX_BATCH, T_pred=scfg.pred_len, mesh=mesh)
+    if not mesh.is_main:
+        engine.run_worker()
+        lap("serving")
+        out["K3"] = decode_step_gathered_q8.launches["int8a"]
+        out["ended"] = time.time()
+        return out
+    try:
+        engine.warmup()
+        obs, pred_lens = dp_requests(scfg)
+        out["before"] = drive_engine(engine, obs, pred_lens)
+        out["stats_before"] = engine.stats.snapshot()
+        engine.update_params(load_params_tree(spec["serve_new"]))
+        engine.stats.reset()
+        out["after"] = drive_engine(engine, obs, pred_lens)
+        out["stats_after"] = engine.stats.snapshot()
+    finally:
+        engine.close()
+    lap("serving")
+    out["K3"] = decode_step_gathered_q8.launches["int8a"]
+    out["ended"] = time.time()
+    return out
+
+
+@contextlib.contextmanager
+def nccl_group_of_one(mesh):
+    """``mesh`` (world 1) in an NCCL group of one in this process.
+    ``launch`` gives world 1 no group; this one drives the sharded
+    step's collectives through NCCL on a one-card machine and reads
+    what a group would cost there."""
+    store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        yield dataclasses.replace(mesh, group=dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_throughput_rank(mesh, spec: dict) -> dict:
+    """One rank of the NCCL group over every visible GPU: the sharded
+    train step's buffered steps/s and all-reduces a step, and the
+    single-process step's on the same weights and the rank's shard,
+    alternated (sharded, single, sharded, single) so that the host's
+    drift within the call falls on both."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = train_config()
+    shard = parallel.shard_batch(mesh, dp_train_batch(spec["prepro"], cfg))
+    tx = trainer.build_optimizer(cfg, TRAIN_EXAMPLES)
+    model, opt_state = parallel.init_sharded_train_state(
+        load_checkpoint(spec["train_ckpt"], Multiverse.init(cfg)), tx, mesh)
+    step = parallel.make_sharded_train_step(cfg, tx, mesh)
+    single = trainer.make_train_step(cfg, tx)
+    calls = mesh.collectives
+    step(model, opt_state, shard)
+    out = {"step_collectives": mesh.collectives - calls,
+           "backend": mesh.backend, "sharded": [], "single": []}
+    for _ in range(2):
+        out["sharded"].append(timed_steps(
+            lambda: step(model, opt_state, shard)))
+        out["single"].append(timed_steps(
+            lambda: single(model, opt_state, shard)))
+    return out
+
+
+def beam_agreement(got_ids, got_lp, want_ids, want_lp, lengths) -> tuple:
+    """Share of (trajectory, beam) whose ids agree up to the trajectory's
+    pred_length, and the largest log-prob difference among them."""
+    same = np.stack([(got_ids[n, :, :t] == want_ids[n, :, :t]).all(-1)
+                     for n, t in enumerate(lengths)])
+    lp = np.abs(got_lp - want_lp)[same]
+    return float(same.mean()), float(lp.max()) if lp.size else 0.0
+
+
+def max_answer_diff(got: list, want: list) -> float:
+    return max(max(float(np.abs(a[0] - b[0]).max()),
+                   float(np.abs(a[1] - b[1]).max()))
+               for a, b in zip(got, want))
+
+
+def multi_device_phase(dev, tmp: str, single_step: dict) -> dict:
+    """Phase 9 (see the module docstring). ``single_step`` is the train
+    phase's single-process steps/s and idle share. Returns the launches
+    of K1, K3, K4 and K5 on the phase's paths (every rank's)."""
+    prepro = os.path.join(tmp, "prepro")
+    save_dir = os.path.join(tmp, "out", "multiverse", "00", "save")
+    steps = list_steps(save_dir)
+    cfg = train_config()
+    bcfg = flagship_config()
+    inputs = inference.synthesize_multifuture_inputs(bcfg, 16, seed=5)
+    spec = {"prepro": prepro, "train_ckpt": steps[-1][1],
+            "beam_ckpt": steps[-1][1], "serve_old": steps[-2][1],
+            "serve_new": steps[-1][1],
+            "beam_batch": inference.make_batch(inputs, np.arange(16), bcfg)}
+    launches = {"K1": 0, "K3": 0, "K4": 0, "K5": 0}
+
+    # 1.-3. the 2-rank gloo group on one card
+    t0 = time.perf_counter()
+    mesh = parallel.make_mesh(devices=["cuda:0"] * DP_WORLD)
+    spec["launched"] = time.time()
+    ranks = parallel.launch(dp_rank, mesh, spec, timeout=300)
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        r["seconds"]["exit and results"] = round(time.time() - r["ended"],
+                                                 3)
+    main = ranks[0]
+    for r in ranks:
+        for k in launches:
+            launches[k] += r[k]
+        if (r["K4"], r["K5"], r["K1"]) != (cfg.pred_len, cfg.pred_len,
+                                           bcfg.pred_len) \
+                or r["K3"] != main["K3"] or not r["K3"]:
+            raise AssertionError(
+                "multi-device: rank %d ran K4/K5 %d/%d times in one step "
+                "(expected %d each), K1 %d times in the decode (expected "
+                "%d), K3 %d times serving (rank 0: %d)"
+                % (r["rank"], r["K4"], r["K5"], cfg.pred_len, r["K1"],
+                   bcfg.pred_len, r["K3"], main["K3"]))
+    print("multi-device: %d gloo ranks on cuda:0, %.1f s (seconds by part "
+          "and rank: %s); K4/K5 a rank a step %s; all-reduces a step %d"
+          % (DP_WORLD, wall, [r["seconds"] for r in ranks],
+             [(r["K4"], r["K5"]) for r in ranks], main["step_collectives"]))
+
+    model = load_checkpoint(spec["train_ckpt"], Multiverse.init(cfg)) \
+        .to(dev).requires_grad_(True)
+    batch = batch_to_device(dp_train_batch(prepro, cfg), dev)
+    grads_p, parts_p = trainer.loss_and_grads(model, batch, cfg)
+    compare_step("multi-device 2-rank step vs single-process",
+                 {n: torch.from_numpy(g) for n, g in main["grads"].items()},
+                 main["loss"], {n: g.float().cpu()
+                                for n, g in grads_p.items()},
+                 float(parts_p["total"]))
+    tx = trainer.build_optimizer(cfg, TRAIN_EXAMPLES)
+    before = numpy_named(model)
+    tx.update(dict(model.named_parameters()), grads_p,
+              tx.init(dict(model.named_parameters())))
+    after = numpy_named(model)
+    worst = max(float(np.linalg.norm(main["params"][n] - want))
+                / max(float(np.linalg.norm(want)), 1e-30)
+                for n, want in after.items())
+    # one step moves the weights far less than 2e-2 of their norm, so
+    # the update itself is held too: a step that left the parameters
+    # unchanged reads 1 there
+    worst_update = update_gap(before, main["params"], after)
+    unchanged = update_gap(before, before, after)
+    print("multi-device: updated parameters vs the single-process step's: "
+          "worst relative L2 %.3g (gate %.0e); of the update itself %.3g "
+          "(gate %.0e; unchanged parameters would read %.3g)"
+          % (worst, DP_UPDATE_RTOL, worst_update, DP_UPDATE_RTOL,
+             unchanged))
+    if not (worst <= DP_UPDATE_RTOL and worst_update <= DP_UPDATE_RTOL
+            and unchanged > DP_UPDATE_RTOL):
+        raise AssertionError("multi-device: the 2-rank step's update "
+                             "disagrees with the single-process step's")
+    del model, grads_p
+    busy = [r["timing"]["busy_ms"] for r in ranks]
+    window = main["timing"]["window_ms"]
+    print("multi-device: 2-rank step on one card (two ranks time-share the "
+          "card: not a scaling figure): %.2f steps/s, %.1f examples/s; "
+          "device busy a step %s ms by rank, window %.2f ms a step, card "
+          "idle share %.4f; single-process (train phase) %.2f steps/s, "
+          "idle %.4f"
+          % (main["timing"]["steps_s"], main["timing"]["steps_s"]
+             * cfg.batch_size, [round(b, 3) for b in busy], window,
+             1 - sum(busy) / window, single_step["steps_s"],
+             single_step["idle"]))
+
+    bmodel = load_checkpoint(spec["beam_ckpt"], Multiverse.init(bcfg)) \
+        .to(dev)
+    with torch.inference_mode():
+        beam1, _ = inference.beam_forward(
+            bmodel, batch_to_device(spec["beam_batch"], dev), bcfg)
+    same, lp = beam_agreement(main["ids"], main["logprobs"],
+                              beam1.ids.cpu().numpy(),
+                              beam1.logprobs.cpu().numpy(),
+                              spec["beam_batch"].pred_length)
+    print("multi-device: 2-rank sharded beam decode (bf16, K1, 16 "
+          "trajectories of the trained run, K = 20) vs single-process: "
+          "beam ids agree in %.4f of beams (gate %.2f), log-probs of those "
+          "within %.3g (gate %.0e); K1 launches by rank %s"
+          % (same, DP_BEAM_SAME_MIN, lp, DP_BEAM_LOGPROB_ATOL,
+             [r["K1"] for r in ranks]))
+    if not (same >= DP_BEAM_SAME_MIN and lp <= DP_BEAM_LOGPROB_ATOL):
+        raise AssertionError("multi-device: the sharded beam decode "
+                             "disagrees with the single-process one")
+    del bmodel, beam1
+
+    scfg = flagship_config(decode_quant="int8a")
+    obs, pred_lens = dp_requests(scfg)
+    want = {}
+    for key in ("serve_old", "serve_new"):
+        engine = ServingEngine(load_checkpoint(spec[key],
+                                               Multiverse.init(scfg)),
+                               scfg, max_batch=DP_MAX_BATCH,
+                               T_pred=scfg.pred_len, device=dev)
+        try:
+            engine.warmup()
+            want[key] = drive_engine(engine, obs, pred_lens)
+            want[key + "_stats"] = engine.stats.snapshot()
+        finally:
+            engine.close()
+    diffs = (max_answer_diff(main["before"], want["serve_old"]),
+             max_answer_diff(main["after"], want["serve_new"]),
+             max_answer_diff(main["after"], want["serve_old"]))
+    largest = (main["stats_before"]["largest_batch"],
+               main["stats_after"]["largest_batch"])
+    print("multi-device: ServingEngine over 2 gloo ranks on cuda:0 (bf16 + "
+          "int8a, max_batch %d, K = 20, %d requests submitted together, "
+          "before and after update_params): largest batch %d / %d requests "
+          "(rank 1 decodes rows %d-%d); max abs diff vs the 1-rank engine "
+          "%.3g / %.3g (gate %.0e), after vs the old weights %.3g; p50 %s "
+          "/ %s ms, max %s / %s ms (1 rank: p50 %s / %s ms); K3 launches "
+          "by rank %s"
+          % (DP_MAX_BATCH, DP_REQUESTS, largest[0], largest[1],
+             DP_MAX_BATCH // 2, DP_MAX_BATCH - 1, diffs[0], diffs[1],
+             DP_SERVE_ATOL, diffs[2],
+             main["stats_before"].get("p50_latency_ms"),
+             main["stats_after"].get("p50_latency_ms"),
+             main["stats_before"]["max_latency_ms"],
+             main["stats_after"]["max_latency_ms"],
+             want["serve_old_stats"].get("p50_latency_ms"),
+             want["serve_new_stats"].get("p50_latency_ms"),
+             [r["K3"] for r in ranks]))
+    if not (diffs[0] <= DP_SERVE_ATOL and diffs[1] <= DP_SERVE_ATOL
+            and diffs[2] > DP_SERVE_ATOL
+            and main["stats_before"]["errors"] == 0
+            and main["stats_after"]["errors"] == 0):
+        raise AssertionError("multi-device: the 2-rank engine's answers "
+                             "differ from the 1-rank engine's")
+    if not min(largest) > DP_MAX_BATCH // 2:
+        raise AssertionError("multi-device: no served batch reached rank "
+                             "1's rows, so its answers went unchecked")
+
+    # mvt-torch-serve refuses more devices than are visible
+    n = torch.cuda.device_count() + 1
+    try:
+        serve.main(["out", "model", "--random_init", "--num_devices", str(n)])
+    except SystemExit as exc:
+        if f"expected {n} devices, found {n - 1}" not in str(exc):
+            raise
+        print("multi-device: mvt-torch-serve --num_devices %d: %s"
+              % (n, exc))
+    else:
+        raise AssertionError("mvt-torch-serve served on fewer devices "
+                             "than --num_devices")
+
+    # 2. NCCL over every visible GPU: mvt-torch-train's main, then the
+    # sharded step's throughput at that world (at world 1, where the
+    # command forms no group, in an NCCL group of one)
+    gpus = parallel.make_mesh_for_batch(cfg.batch_size)
+    world = gpus.world
+    flags = list(TRAIN_FLAGS)
+    flags[flags.index("--num_epochs") + 1] = "1"
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = train_cli.main([prepro, os.path.join(tmp, "out_dp"), "dp",
+                              *flags])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_steps = TRAIN_EXAMPLES // cfg.batch_size
+    eval_batches = -(-VAL_EXAMPLES // cfg.batch_size)
+    if summary["world"] != world or summary["steps"] != n_steps \
+            or (summary["collectives"] == 0) != (world == 1):
+        raise AssertionError(f"multi-device: mvt-torch-train ran "
+                             f"{summary['steps']} steps at world "
+                             f"{summary['world']} with "
+                             f"{summary['collectives']} collectives")
+    if world == 1:    # in this process: its launches are counted here
+        if (gnn_dense_fwd.launches, gnn_dense_bwd.launches,
+                decode_step_gathered.launches) != (
+                n_steps * cfg.pred_len, n_steps * cfg.pred_len,
+                eval_batches * cfg.pred_len):
+            raise AssertionError("multi-device: mvt-torch-train's K4/K5/K1 "
+                                 "launches do not match its steps")
+        launches["K4"] += gnn_dense_fwd.launches
+        launches["K5"] += gnn_dense_bwd.launches
+        launches["K1"] += decode_step_gathered.launches
+    if world > 1:
+        nccl = parallel.launch(dp_throughput_rank, gpus, spec,
+                               timeout=300)[0]
+    else:
+        with nccl_group_of_one(gpus) as mesh:
+            nccl = dp_throughput_rank(mesh, spec)
+
+    def readings(key):
+        return ", ".join("%.2f steps/s (idle %.4f)" % (
+            t["steps_s"], 1 - t["busy_ms"] / t["window_ms"])
+            for t in nccl[key])
+
+    print("multi-device: mvt-torch-train's main over every visible GPU: "
+          "world %d, %d steps and one eval in %.2f s, %d collectives; in "
+          "an %s group of that world (%d all-reduces a step), on rank 0's "
+          "shard (batch %d), alternated: the sharded step %s; the "
+          "single-process step %s (the train phase's %.2f steps/s, idle "
+          "%.4f)"
+          % (world, n_steps, wall, summary["collectives"], nccl["backend"],
+             nccl["step_collectives"], cfg.batch_size // world,
+             readings("sharded"), readings("single"),
+             single_step["steps_s"], single_step["idle"]))
+    return launches
 
 
 # ---------------------------------------------------------------- SimAug
@@ -2141,10 +2630,11 @@ def best_checkpoint_decodes(what: str, run: str, best_step: int, cfg,
     return model
 
 
-def step_throughput(what: str, run_step, batch_size: int) -> None:
+def step_throughput(what: str, run_step, batch_size: int) -> dict:
     """Buffered steps/s and examples/s of ``run_step`` (3 warm-up steps,
     then 20 with one sync at the end), the device idle share over 5
-    steps and the top device operations of one step (torch.profiler)."""
+    steps and the top device operations of one step (torch.profiler).
+    Returns the steps/s and the idle share."""
     for _ in range(3):
         run_step()
     torch.cuda.synchronize()
@@ -2169,6 +2659,7 @@ def step_throughput(what: str, run_step, batch_size: int) -> None:
     busy = device_busy_ms(prof)
     print("%s: device idle share over 5 steps %.4f (busy %.2f ms of %.2f "
           "ms)" % (what, 1 - busy / window_ms, busy, window_ms))
+    result = {"steps_s": n_steps / dt, "idle": 1 - busy / window_ms}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_step()
         torch.cuda.synchronize()
@@ -2183,6 +2674,7 @@ def step_throughput(what: str, run_step, batch_size: int) -> None:
             e.self_device_time_total / 1e3,
             100 * e.self_device_time_total / 1e3 / total, e.count,
             e.key[:100]))
+    return result
 
 
 def wmma_shares(tree: str) -> None:
@@ -2324,6 +2816,10 @@ def main() -> int:
         for k, n in lifecycle_phase(dev, tmp).items():
             launches[k] += n
         elapsed("serve-lifecycle phase")
+        for k, n in multi_device_phase(dev, tmp,
+                                       trained["throughput"]).items():
+            launches[k] += n
+        elapsed("multi-device phase")
     simaug_run = simaug_phase(model, dev)
     for k in ("K1", "K4", "K5"):
         launches[k] += simaug_run[k]

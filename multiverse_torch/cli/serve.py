@@ -11,8 +11,10 @@ grid scales. ``--reload_poll_s N`` re-lists that run directory every N
 seconds and swaps a newer step into the engine without dropping
 traffic (a failed restore keeps the served weights). Differences:
 
-* ``--device`` picks the device (default cuda); ``--num_devices`` other
-  than 1 is refused (one device only);
+* ``--device`` picks the device (default cuda); ``--num_devices N``
+  (0: every visible GPU) shards each served batch over N devices, one
+  process a device (``multiverse_torch/parallel``), and fails where
+  fewer are visible;
 * checkpoints are the port's npz steps (``train/checkpoints.py``), not
   orbax directories.
 
@@ -38,6 +40,7 @@ import torch
 from multiverse_torch.bridge import load_params_tree
 from multiverse_torch.cli.common import add_model_args, config_from_args
 from multiverse_torch.models import Multiverse
+from multiverse_torch.parallel import Mesh, launch, make_mesh
 from multiverse_torch.serving.engine import ServingEngine
 from multiverse_torch.serving.server import PredictionServer
 from multiverse_torch.train.checkpoints import (
@@ -73,7 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "requests; when full, new requests get "
                              "503 + Retry-After (default: unbounded)")
     parser.add_argument("--num_devices", type=int, default=1,
-                        help="devices to serve across; only 1 is ported")
+                        help="devices to serve across (data-parallel "
+                             "batch sharding, one process a device); "
+                             "0 = all visible")
     parser.add_argument("--T_pred", type=int, default=None)
     parser.add_argument("--greedy", action="store_true",
                         help="greedy single-future decode instead of "
@@ -174,29 +179,51 @@ def reload_loop(engine: ServingEngine, directory: str,
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    device = torch.device(args.device)
+    mesh = None
     if args.num_devices != 1:
-        raise SystemExit(f"{PROG}: --num_devices {args.num_devices}: "
-                         "serving across devices is not ported yet")
+        try:
+            mesh = make_mesh(n_devices=args.num_devices or None,
+                             device_type=device.type)
+        except ValueError as exc:
+            raise SystemExit(f"{PROG}: --num_devices {args.num_devices}: "
+                             f"{exc}") from None
     args.compute_dtype, args.decode_quant = resolve_serving_dtypes(
-        torch.device(args.device).type, args.compute_dtype,
-        args.decode_quant)
+        device.type, args.compute_dtype, args.decode_quant)
     args.max_batch = resolve_max_batch(args.max_batch, args.greedy)
+    if args.reload_poll_s > 0 and checkpoint_dir(args) is None:
+        raise SystemExit(f"{PROG}: --reload_poll_s needs the run-directory "
+                         "load path (drop --load_from/--random_init)")
+    if mesh is None:
+        serve_rank(None, args)
+    else:
+        launch(serve_rank, mesh, args)
+
+
+def serve_rank(mesh: Optional[Mesh], args: argparse.Namespace) -> None:
+    """The server on one device (``mesh`` None), or one rank of it: rank
+    0 serves HTTP, warms up and hot-reloads (each update reaches every
+    rank through ``update_params``); the other ranks decode their block
+    of each batch until rank 0 closes."""
     cfg = config_from_args(args).replace(
         use_beam_search=not args.greedy).validate()
     reload_dir = checkpoint_dir(args)
-    if args.reload_poll_s > 0 and reload_dir is None:
-        raise SystemExit(f"{PROG}: --reload_poll_s needs the run-directory "
-                         "load path (drop --load_from/--random_init)")
     model, served_step = load_model(args, cfg)
 
     engine = ServingEngine(
         model, cfg, max_batch=args.max_batch,
         max_delay_ms=args.max_delay_ms, T_pred=args.T_pred,
-        max_queue=args.max_queue, device=args.device)
+        max_queue=args.max_queue, device=args.device, mesh=mesh)
+    if mesh is not None and not mesh.is_main:
+        engine.run_worker()
+        return
     print(f"{PROG}: warming up (batch={args.max_batch}, "
           f"T={engine.T_pred}, beam={cfg.beam_size}, "
           f"dtype={cfg.compute_dtype}, quant={cfg.decode_quant}, "
-          f"device={engine.device})...", file=sys.stderr)
+          f"device={engine.device}"
+          + ("" if mesh is None or mesh.group is None
+             else f", mesh={mesh.shape} {mesh.backend}")
+          + ")...", file=sys.stderr)
     dt = engine.warmup()
     print(f"{PROG}: warm in {dt:.1f}s", file=sys.stderr)
 

@@ -6,9 +6,12 @@ checkpoint (the latest of ``save``, or of ``best`` with
 ``--load_best``, or ``--load_from`` an npz file or directory, pruned to
 the configuration's parameters as the JAX package prunes), runs the
 full evaluate loop and prints the metric table in the same format.
-``--device`` picks the device (default cuda). With
-``--use_beam_search`` and ``--save_output`` the beam ids and log-probs
-of the beam decode go into the output pickle as well.
+``--device`` picks the device (default cuda: the eval and the beam
+decode shard each batch over every visible GPU, the world the largest
+divisor of ``--batch_size`` that fits them, one process a GPU, as
+``mvt-test`` shards over its chips; ``cuda:N`` or ``cpu`` is one
+device). With ``--use_beam_search`` and ``--save_output`` the beam ids
+and log-probs of the beam decode go into the output pickle as well.
 """
 
 from __future__ import annotations
@@ -18,17 +21,23 @@ import argparse
 import torch
 
 from multiverse_torch.cli.common import add_model_args, config_from_args
-from multiverse_torch.cli.train import resolve_device
-from multiverse_torch.data.dataset import batch_to_device, read_data
-from multiverse_torch.inference import beam_forward
+from multiverse_torch.cli.train import resolve_device, train_mesh
+from multiverse_torch.data.dataset import read_data
 from multiverse_torch.models import BeamOutputs, Multiverse
+from multiverse_torch.parallel import (
+    Mesh,
+    launch,
+    make_sharded_beam_step,
+    make_sharded_eval_step,
+    replicate,
+    shard_batch,
+)
 from multiverse_torch.train.checkpoints import (
     CheckpointManager,
     load_checkpoint,
-    process_out_dirs,
+    run_dir,
 )
 from multiverse_torch.train.evaluate import evaluate
-from multiverse_torch.train.trainer import make_eval_step
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,6 +72,14 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    return launch(test_worker, train_mesh(device, args.batch_size),
+                  args)[0]
+
+
+def test_worker(mesh: Mesh, args: argparse.Namespace) -> dict:
+    """One rank of ``mvt-torch-test``: the eval forward and the beam
+    decode of its block of every batch, the outputs gathered on every
+    rank; rank 0 prints the table and writes ``--save_output``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = config_from_args(args)
@@ -74,18 +91,18 @@ def main(argv=None) -> dict:
     if args.load_from is not None:
         model = load_checkpoint(args.load_from, template)
     else:
-        ckpt = CheckpointManager(process_out_dirs(
-            args.outbasepath, args.modelname, args.runId))
+        ckpt = CheckpointManager(run_dir(
+            args.outbasepath, args.modelname, args.runId), create=False)
         model = ckpt.restore_params(template, best=args.load_best)
-    model = model.to(device)
-    eval_step = make_eval_step(cfg)
-    # eval_fn and beam_fn get the same batch back to back: upload once
+    model = replicate(mesh, model)
+    eval_step = make_sharded_eval_step(cfg, mesh)
+    # eval_fn and beam_fn get the same batch back to back: upload the
+    # rank's block once
     placed = {"src": None, "dev": None}
 
     def on_device(batch):
         if placed["src"] is not batch:
-            placed["src"], placed["dev"] = batch, batch_to_device(batch,
-                                                                  device)
+            placed["src"], placed["dev"] = batch, shard_batch(mesh, batch)
         return placed["dev"]
 
     def eval_fn(batch):
@@ -95,9 +112,10 @@ def main(argv=None) -> dict:
 
     beam_fn = None
     if cfg.use_beam_search:
+        beam_step = make_sharded_beam_step(cfg, mesh)
+
         def beam_fn(batch):
-            with torch.inference_mode():
-                beam, _ = beam_forward(model, on_device(batch), cfg)
+            beam, _ = beam_step(model, on_device(batch))
             return BeamOutputs(*(None if t is None else t.cpu().numpy()
                                  for t in beam))
 
@@ -105,7 +123,10 @@ def main(argv=None) -> dict:
                     per_scene_eval=args.per_scene_eval,
                     use_gt_grid=args.use_gt_grid,
                     save_output=args.save_output, beam_step_fn=beam_fn,
-                    only_scene=args.only_scene)
+                    only_scene=args.only_scene,
+                    write_output=mesh.is_main)
+    if not mesh.is_main:
+        return perf
 
     # the metric table (reference: code/test.py:157-182): every metric
     # on its own "key, value" line, then the key metrics' names and

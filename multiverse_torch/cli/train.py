@@ -6,9 +6,15 @@ eval, best-model tracking on grid{val_grid_num}_traj_ade, the NaN-loss
 abort within one ``--loss_fetch_period``, moving-average loss displays
 and ``val_perf.json``. Differences:
 
-* ``--device`` picks the device (default cuda; there is no CPU fallback,
-  ``--device cpu`` runs the plain PyTorch versions of the kernels);
-* one device: ``--model_parallel`` other than 1 is refused;
+* the step runs data-parallel over every visible GPU with no flag, as
+  ``mvt-train`` does over every chip: one process a GPU
+  (``multiverse_torch/parallel``), the world the largest divisor of
+  ``--batch_size`` that fits them, ``CUDA_VISIBLE_DEVICES`` limiting
+  them; tensor parallelism (``--model_parallel`` other than 1) is
+  refused;
+* ``--device`` picks the device (default cuda, every visible GPU;
+  ``cuda:N`` one GPU; there is no CPU fallback, ``--device cpu`` runs
+  one process with the plain PyTorch versions of the kernels);
 * checkpoints are the port's npz files (``train/checkpoints.py``),
   which ``mvt-torch-test``, ``mvt-torch-serve`` and
   ``mvt-torch-multifuture-inference`` read from the run directory or as
@@ -39,20 +45,27 @@ from multiverse_torch.cli.common import (
     add_train_args,
     config_from_args,
 )
-from multiverse_torch.data.dataset import batch_to_device, read_data
+from multiverse_torch.data.dataset import read_data
 from multiverse_torch.data.prefetch import prefetch
 from multiverse_torch.models import Multiverse
+from multiverse_torch.parallel import (
+    Mesh,
+    init_sharded_train_state,
+    launch,
+    make_mesh,
+    make_mesh_for_batch,
+    make_sharded_eval_step,
+    make_sharded_train_step,
+    shard_batch,
+)
 from multiverse_torch.train.checkpoints import (
     CheckpointManager,
     load_checkpoint,
     process_out_dirs,
+    run_dir,
 )
 from multiverse_torch.train.evaluate import evaluate
-from multiverse_torch.train.trainer import (
-    build_optimizer,
-    make_eval_step,
-    make_train_step,
-)
+from multiverse_torch.train.trainer import build_optimizer
 from multiverse_torch.utils import MovingAverage, profile_trace
 
 PROG = "mvt-torch-train"
@@ -85,7 +98,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--profile", default=None,
                         help="directory for a torch.profiler trace")
     parser.add_argument("--model_parallel", type=int, default=1,
-                        help="only 1: the port trains on one device")
+                        help="only 1: the port trains data-parallel only")
     parser.add_argument("--per_scene_eval", action="store_true")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
@@ -103,61 +116,92 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def main(argv=None) -> None:
+def train_mesh(device: torch.device, batch_size: int) -> Mesh:
+    """Data parallelism over every visible GPU for ``--device cuda``
+    (the largest divisor of the batch size that fits them; one process
+    a GPU), or the one device of ``--device cpu`` / ``cuda:N``."""
+    if device.type == "cuda" and device.index is None:
+        return make_mesh_for_batch(batch_size)
+    return make_mesh(devices=[device])
+
+
+def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     if args.model_parallel != 1:
-        sys.exit("%s: --model_parallel %d: the port trains on one device "
-                 "(tensor parallelism is not ported)"
+        sys.exit("%s: --model_parallel %d: tensor parallelism is not "
+                 "ported (the port trains data-parallel only)"
                  % (PROG, args.model_parallel))
     device = resolve_device(args.device)
+    if args.check_model:
+        cfg = config_from_args(args)
+        for name, p in Multiverse.init(cfg).named_parameters():
+            print("%s %s" % (name.replace(".", "/"), tuple(p.shape)))
+        return {}
+    return launch(train_worker, train_mesh(device, args.batch_size),
+                  args)[0]
+
+
+def _quiet(*_args, **_kw) -> None:
+    pass
+
+
+def train_worker(mesh: Mesh, args: argparse.Namespace) -> dict:
+    """One rank of ``mvt-torch-train``: every rank iterates the same
+    seeded global batch stream and trains on its block of each batch
+    (the same examples in each step, and the gathered eval outputs in
+    order, at any world size); rank 0 alone prints the step lines and
+    writes the run directory. Returns the rank's step count, world size,
+    collective calls and best validation point."""
     # full f32 products, as the JAX package's Precision.HIGHEST
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = config_from_args(args)
+    log = print if mesh.is_main else _quiet
 
     train_data = read_data(args.prepropath, "train", cfg)
     val_data = read_data(args.prepropath, "val", cfg)
-
     model = Multiverse.init(cfg, seed=args.seed, trainable=True)
-    if args.check_model:
-        for name, p in model.named_parameters():
-            print("%s %s" % (name.replace(".", "/"), tuple(p.shape)))
-        return
 
-    outpath = process_out_dirs(args.outbasepath, args.modelname, args.runId)
-    with open(os.path.join(outpath, "config.json"), "w") as f:
-        f.write(cfg.to_json())
-    ckpt = CheckpointManager(outpath)
+    if mesh.is_main:
+        outpath = process_out_dirs(args.outbasepath, args.modelname,
+                                   args.runId)
+        with open(os.path.join(outpath, "config.json"), "w") as f:
+            f.write(cfg.to_json())
+    else:
+        outpath = run_dir(args.outbasepath, args.modelname, args.runId)
+    ckpt = CheckpointManager(outpath, create=mesh.is_main)
 
-    # a checkpoint with more grid scales than the model is pruned to it
+    # a checkpoint with more grid scales than the model is pruned to it;
+    # every rank loads the same one
     loaded = None
     if args.load_from is not None:
         loaded = load_checkpoint(args.load_from, model)
     elif args.load or args.load_best:
         loaded = ckpt.restore_params(model, best=args.load_best)
     if loaded is not None:
-        model = loaded.requires_grad_(True)
-    model = model.to(device)
+        model = loaded
     tx = build_optimizer(cfg, train_data.num_examples)
-    opt_state = tx.init(dict(model.named_parameters()))
+    model, opt_state = init_sharded_train_state(model, tx, mesh)
     # new saves continue above any steps already in this run dir (the
-    # schedule restarts at 0, as the reference's restore does)
+    # schedule restarts at 0, as the reference's restore does); read
+    # before the first step, so before rank 0 can save one
     step_offset = ckpt.latest_step() or 0
 
-    train_step = make_train_step(cfg, tx)
-    eval_step = make_eval_step(cfg)
+    train_step = make_sharded_train_step(cfg, tx, mesh)
+    eval_step = make_sharded_eval_step(cfg, mesh)
 
     def eval_fn(batch):
-        cl, rg = eval_step(model, batch_to_device(batch, device))
+        cl, rg = eval_step(model, shard_batch(mesh, batch))
         return ({i: v.cpu().numpy() for i, v in cl.items()},
                 {i: v.cpu().numpy() for i, v in rg.items()})
 
     steps_per_epoch = int(math.ceil(train_data.num_examples / cfg.batch_size))
     num_steps = steps_per_epoch * cfg.num_epochs
-    print("batch_size:%d, epochs:%d, %d steps/epoch, total %d steps, "
-          "eval/save every %d steps, device=%s" % (
-              cfg.batch_size, cfg.num_epochs, steps_per_epoch, num_steps,
-              args.save_period, device))
+    log("batch_size:%d, epochs:%d, %d steps/epoch, total %d steps, "
+        "eval/save every %d steps, mesh=%s, device=%s (%s)" % (
+            cfg.batch_size, cfg.num_epochs, steps_per_epoch, num_steps,
+            args.save_period, mesh.shape, mesh.device,
+            mesh.backend if mesh.group is not None else "no group"))
 
     metric = "grid%d_traj_ade" % args.val_grid_num
     best = {metric: float("inf"), "step": -1}
@@ -169,7 +213,7 @@ def main(argv=None) -> None:
     loss_buf = LossBuffer(loss_ma, args.loss_fetch_period,
                           aux_mas={"wd": wd_ma})
 
-    with profile_trace(args.profile):
+    with profile_trace(args.profile if mesh.is_main else None):
         if loaded is not None:
             # the loaded model's validation baseline, so best tracking
             # never ends worse than the starting checkpoint
@@ -178,7 +222,7 @@ def main(argv=None) -> None:
             best[metric] = evalperf[metric]
             best["step"] = step_offset
             val_perf.append((None, evalperf, step_offset, False))
-            print("loaded baseline: val %s=%.4f" % (metric, evalperf[metric]))
+            log("loaded baseline: val %s=%.4f" % (metric, evalperf[metric]))
 
         # steps/s flush to flush: the flush's copy to the host is the
         # sync point
@@ -188,11 +232,11 @@ def main(argv=None) -> None:
                 cfg.batch_size, num_steps=num_steps), depth=2) as batches:
             for batch, _ in batches:
                 global_step += 1
-                # one dropout seed per step
+                # one dropout seed per step (each rank folds in its own)
                 rng = (args.seed + 1) * 1_000_003 + global_step \
                     if dropout else None
                 losses = train_step(model, opt_state,
-                                    batch_to_device(batch, device), rng)
+                                    shard_batch(mesh, batch), rng)
                 loss_buf.put(global_step, losses["total"],
                              aux={"wd": losses["wd"]})
                 if global_step % args.save_period == 0 \
@@ -202,21 +246,25 @@ def main(argv=None) -> None:
                     steps_per_sec = (global_step - sync_step) / max(
                         now - sync_t, 1e-9)
                     sync_t, sync_step = now, global_step
-                    ckpt.save(global_step + step_offset, model)
+                    if mesh.is_main:
+                        ckpt.save(global_step + step_offset, model)
+                    # every rank evaluates its shard and gets every
+                    # rank's outputs: the same metrics, the same best
                     evalperf = evaluate(val_data, cfg, eval_fn,
                                         per_scene_eval=args.per_scene_eval)
-                    print("step %d: loss(ma)=%s wd(ma)=%s %.1f steps/s "
-                          "| val: %s (best %s=%.4f @%d)" % (
-                              global_step, loss_ma, wd_ma, steps_per_sec,
-                              {k: round(v, 4) for k, v in sorted(
-                                  evalperf.items()) if "@T" not in k},
-                              metric, best[metric], best["step"]))
+                    log("step %d: loss(ma)=%s wd(ma)=%s %.1f steps/s "
+                        "| val: %s (best %s=%.4f @%d)" % (
+                            global_step, loss_ma, wd_ma, steps_per_sec,
+                            {k: round(v, 4) for k, v in sorted(
+                                evalperf.items()) if "@T" not in k},
+                            metric, best[metric], best["step"]))
                     is_best = evalperf[metric] < best[metric]
                     if is_best:
                         best[metric] = evalperf[metric]
                         best["step"] = global_step + step_offset
-                        ckpt.save(global_step + step_offset, model,
-                                  best=True)
+                        if mesh.is_main:
+                            ckpt.save(global_step + step_offset, model,
+                                      best=True)
                     # every eval point is recorded: val_perf.json holds
                     # the whole curve
                     val_perf.append((loss_ma.me(), evalperf,
@@ -224,16 +272,19 @@ def main(argv=None) -> None:
                     finalperf = evalperf
         loss_buf.flush()
 
-    with open(os.path.join(outpath, "val_perf.json"), "w") as f:
-        # json has no Infinity: a run too short to eval stores null
-        best_out = dict(best)
-        if math.isinf(best_out[metric]):
-            best_out[metric] = None
-        json.dump({"best": best_out, "val_perf": val_perf}, f, indent=2,
-                  default=float)
+    if mesh.is_main:
+        with open(os.path.join(outpath, "val_perf.json"), "w") as f:
+            # json has no Infinity: a run too short to eval stores null
+            best_out = dict(best)
+            if math.isinf(best_out[metric]):
+                best_out[metric] = None
+            json.dump({"best": best_out, "val_perf": val_perf}, f,
+                      indent=2, default=float)
     if finalperf is not None:
-        print("best val %s: %.4f at step %d; final %s=%.4f" % (
+        log("best val %s: %.4f at step %d; final %s=%.4f" % (
             metric, best[metric], best["step"], metric, finalperf[metric]))
+    return {"steps": global_step, "world": mesh.world,
+            "collectives": mesh.collectives, "best": best}
 
 
 if __name__ == "__main__":

@@ -469,11 +469,21 @@ def compute_loss(
     batch: Batch,
     outputs: ForwardOutputs,
     cfg: MultiverseConfig,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Grid cross entropy + Huber offset regression + L2 weight decay
-    (``multiverse_tpu/models/multiverse.py:compute_loss`` on one device;
-    the data-parallel ``axis_name`` form waits for the multi-GPU port).
-    Returns (total loss, dict of per-head losses)."""
+    (``multiverse_tpu/models/multiverse.py:compute_loss``). Returns
+    (total loss, dict of per-head losses).
+
+    ``mesh``: the ``multiverse_torch.parallel.Mesh`` of a data-parallel
+    step (the JAX ``axis_name``) whose caller averages the losses and
+    gradients over its ranks' equal shards. Every plain mean is exact
+    under that average, but the masked regression's normaliser, the
+    shard's mask count, is not: in a mesh's group the count is summed
+    over the ranks and the local term scaled by the world size, so the
+    average is
+    ``sum_ranks(num) / (2 * global count)`` in value and in gradient
+    (the count does not depend on the parameters)."""
     losses: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), dtype=torch.float32,
                         device=batch.obs_grid_class.device)
@@ -502,8 +512,12 @@ def compute_loss(
                 label_mask = F.one_hot(labels_t.reshape(-1).long(),
                                        h * w).float()
             m = (label_mask > 0).float().reshape(reg.shape[:-1])[..., None]
-            reg_loss = torch.sum(hub * m) / torch.clamp_min(
-                torch.sum(m) * 2.0, 1.0)
+            num, den = torch.sum(hub * m), torch.sum(m).detach()
+            scale = 1.0
+            if mesh is not None and mesh.group is not None:
+                den = mesh.all_reduce_sum(den.clone())
+                scale = float(mesh.world)
+            reg_loss = scale * num / torch.clamp_min(den * 2.0, 1.0)
         else:
             reg_loss = torch.mean(hub)
 

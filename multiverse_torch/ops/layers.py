@@ -1,9 +1,12 @@
 """Conv layers with the JAX package's layouts and inits.
 
 PyTorch port of ``multiverse_tpu/ops/layers.py`` (``get_activation``,
-``init_conv``, ``conv2d``). Activations are NHWC and kernels HWIO at
-every public function, as in the JAX package; ``conv2d`` permutes to
-PyTorch's NCHW/OIHW inside.
+``init_conv``, ``conv2d``, ``l2_weight_decay``, and the layer extras
+``init_linear``, ``linear``, ``exp_mask``, ``softsel``,
+``focal_attention`` and ``group_norm``, which the model does not call:
+they are the reference's layer inventory, dead code there too).
+Activations are NHWC and kernels HWIO at every public function, as in
+the JAX package; ``conv2d`` permutes to PyTorch's NCHW/OIHW inside.
 """
 
 from __future__ import annotations
@@ -81,6 +84,77 @@ def conv2d(
     if activation is not None:
         out = activation(out)
     return out.float()
+
+
+def init_linear(generator: torch.Generator, in_dim: int, out_dim: int,
+                add_bias: bool = False) -> Dict[str, torch.Tensor]:
+    """Dense params: ``w`` [in, out] a unit normal truncated to [-2, 2]
+    times 0.1; ``b`` zeros when ``add_bias``."""
+    w = torch.empty((in_dim, out_dim), dtype=torch.float32)
+    torch.nn.init.trunc_normal_(w, std=1.0, a=-2.0, b=2.0,
+                                generator=generator)
+    p = {"w": w * 0.1}
+    if add_bias:
+        p["b"] = torch.zeros(out_dim, dtype=torch.float32)
+    return p
+
+
+def linear(params: Params, x: torch.Tensor,
+           activation: Optional[Callable] = None) -> torch.Tensor:
+    """Fully connected over the last axis, f32 (reference:
+    pred_models.py:1404-1447)."""
+    out = torch.einsum("...i,io->...o", x, params["w"])
+    if "b" in params:
+        out = out + params["b"]
+    if activation is not None:
+        out = activation(out)
+    return out
+
+
+def exp_mask(val: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Additive -1e30 masking (reference: code/pred_models.py:1399-1401)."""
+    return val + (1.0 - mask.to(val.dtype)) * -1e30
+
+
+def softsel(target: torch.Tensor, logits: torch.Tensor,
+            use_sigmoid: bool = False) -> torch.Tensor:
+    """Soft selection: ``target``'s second-to-last axis weighted by the
+    softmax (or sigmoid) of ``logits`` and summed out (reference:
+    code/pred_models.py:1376-1396). target [..., M, d], logits [..., M]
+    -> [..., d]."""
+    weights = (torch.sigmoid(logits) if use_sigmoid
+               else torch.softmax(logits, dim=-1))
+    return torch.sum(target * weights[..., None], dim=-2)
+
+
+def focal_attention(query: torch.Tensor, context: torch.Tensor,
+                    use_sigmoid: bool = False) -> torch.Tensor:
+    """Two-level focal attention, the JAX package's cosine-similarity
+    form of reference: code/pred_models.py:1451-1497: attend over time
+    within each channel by its similarity to the query, then over the
+    channels by each channel's best similarity. query [N, d], context
+    [N, K, T, d] -> [N, d]."""
+
+    def l2n(x):
+        s = torch.sum(torch.square(x), dim=-1, keepdim=True)
+        return x * torch.rsqrt(torch.clamp_min(s, 1e-12))
+
+    sim = torch.sum(l2n(query)[:, None, None, :] * l2n(context), dim=-1)
+    per_channel = softsel(context, sim, use_sigmoid)          # [N, K, d]
+    return softsel(per_channel, sim.amax(dim=2), use_sigmoid)
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over NHWC (reference: code/pred_models.py:1511-1633, the
+    ``--use_gn`` normalisation), the population variance per group."""
+    n, h, w, c = x.shape
+    g = min(num_groups, c)
+    xg = x.reshape(n, h, w, g, c // g)
+    mean = xg.mean(dim=(1, 2, 4), keepdim=True)
+    var = xg.var(dim=(1, 2, 4), keepdim=True, unbiased=False)
+    xg = (xg - mean) * torch.rsqrt(var + eps)
+    return xg.reshape(n, h, w, c) * scale + bias
 
 
 def _named_leaves(params, prefix: str = ""):

@@ -20,11 +20,18 @@ with the same host design and a torch device step:
   PyTorch enqueues CUDA work without waiting for it, so the next batch
   is assembled while the previous one decodes;
 * **device-resident weights.** Uploaded once; ``update_params`` swaps
-  them between batches.
+  them between batches;
+* **data-parallel across devices** (``mesh``, the JAX engine's): one
+  process a device (``multiverse_torch/parallel``), every rank builds
+  the engine. Rank 0 runs the front ends, the batcher and the resolver
+  and broadcasts each device batch; every rank rasterises and decodes
+  its block of ``max_batch / world`` rows with its tier's kernel, and
+  the results come back to rank 0 in rank order. The other ranks run
+  :meth:`ServingEngine.run_worker` until rank 0 closes. Weight updates
+  reach every rank between device batches, never inside one.
 
-Only one device: the JAX engine's ``mesh`` is not ported (multi-GPU is
-later work). On ``device="cpu"`` the same engine runs the plain PyTorch
-path (the tests use it).
+On ``device="cpu"`` the same engine runs the plain PyTorch path (the
+tests use it).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
+import traceback
 from collections import deque
 from dataclasses import dataclass, field
 from typing import List, NamedTuple, Optional
@@ -50,6 +58,18 @@ from multiverse_torch.inference import (
     reconstruct_greedy_trajs,
 )
 from multiverse_torch.models.multiverse import Batch
+from multiverse_torch.parallel.mesh import (
+    Mesh,
+    broadcast_params,
+    gather_rows,
+    replicate,
+)
+
+# the commands rank 0 broadcasts to the other ranks of a mesh engine
+_CMD_STOP, _CMD_BATCH, _CMD_PARAMS, _CMD_NOOP = range(4)
+# an idle mesh engine's rank 0 sends a no-op this often, so the other
+# ranks' wait for the next command never reaches the group's timeout
+_HEARTBEAT_S = 5.0
 
 
 @dataclass
@@ -139,6 +159,7 @@ class EngineStats:
     errors: int = 0
     rejected: int = 0
     abandoned: int = 0
+    largest_batch: int = 0    # the most real requests in one batch
     latency_sum_s: float = 0.0
     latency_max_s: float = 0.0
     # recent completion latencies for the percentile fields; bounded so
@@ -152,6 +173,7 @@ class EngineStats:
         with self._lock:
             self.batches += 1
             self.requests += n_real
+            self.largest_batch = max(self.largest_batch, n_real)
             for v in latencies:
                 self.latency_sum_s += v
                 self.latency_max_s = max(self.latency_max_s, v)
@@ -160,7 +182,7 @@ class EngineStats:
     def reset(self):
         with self._lock:
             self.requests = self.batches = self.errors = 0
-            self.rejected = self.abandoned = 0
+            self.rejected = self.abandoned = self.largest_batch = 0
             self.latency_sum_s = self.latency_max_s = 0.0
             self._recent.clear()
 
@@ -177,6 +199,7 @@ class EngineStats:
                 "rejected": self.rejected,
                 "abandoned": self.abandoned,
                 "mean_batch_occupancy": round(occ, 2),
+                "largest_batch": self.largest_batch,
                 "mean_latency_ms": round(mean_lat * 1e3, 2),
                 "max_latency_ms": round(self.latency_max_s * 1e3, 2),
             }
@@ -209,6 +232,12 @@ class ServingEngine:
             :class:`EngineOverloadedError`.
         device: where the step runs, ``cuda`` by default; ``cpu`` runs
             the plain PyTorch path.
+        mesh: a :class:`~multiverse_torch.parallel.Mesh` joined by
+            :func:`~multiverse_torch.parallel.launch` (every rank builds
+            the engine with the same arguments): each batch is sharded
+            over its ranks, ``device`` is then the rank's; ``max_batch``
+            must be divisible by its world size. On ranks other than 0
+            call :meth:`run_worker`.
     """
 
     def __init__(
@@ -221,15 +250,22 @@ class ServingEngine:
         inflight_slots: int = 2,
         max_queue: Optional[int] = None,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ):
         if max_queue is not None and max_queue < 1:
             # Queue(maxsize=0) means UNBOUNDED in python, the opposite
             # of the strictest admission a 0 would be asking for
             raise ValueError("max_queue must be >= 1 (or None for "
                              "unbounded)")
-        self.device = _resolve_device(device)
+        self._mesh = mesh
+        self.device = _resolve_device(device if mesh is None
+                                      else mesh.device)
         self.cfg = cfg.validate()
         self.max_batch = int(max_batch)
+        if mesh is not None and self.max_batch % mesh.world != 0:
+            raise ValueError(
+                f"max_batch {self.max_batch} not divisible by the mesh "
+                f"data axis ({mesh.world})")
         self.max_delay_s = float(max_delay_ms) / 1e3
         self.T_pred = int(T_pred or cfg.pred_len)
         self.greedy = not cfg.use_beam_search
@@ -243,7 +279,11 @@ class ServingEngine:
         # fixed scene-table height: every obs frame of every slot
         # distinct is the worst case
         self.F_scene = self.max_batch * cfg.obs_len
-        self._params = params.to(self.device)
+        self._params = (params.to(self.device) if mesh is None
+                        else replicate(mesh, params))
+        self._next_params = None      # a mesh engine's pending update
+        self._next_lock = threading.Lock()
+        self._last_collective = time.perf_counter()
 
         # device-resident all-background scene table for the common case
         # where no request attaches a scene; the host copy is the
@@ -267,6 +307,8 @@ class ServingEngine:
         # the next batch instead of locking in a small one
         self._inflight: "queue.Queue" = queue.Queue()
         self._slots = threading.BoundedSemaphore(max(1, inflight_slots))
+        if mesh is not None and not mesh.is_main:
+            return      # a worker rank: run_worker() serves rank 0
         self._batcher = threading.Thread(
             target=self._batcher_loop, name="mvt-serving-batcher",
             daemon=True)
@@ -305,7 +347,13 @@ class ServingEngine:
                 "update_params: the new weights do not match the served "
                 "model (a different architecture needs a new engine): "
                 f"{exc}") from None
-        self._params = params.to(self.device)
+        if self._mesh is None:
+            self._params = params.to(self.device)
+        else:
+            # the batcher broadcasts it to every rank before its next
+            # device batch, the only thread that talks to the ranks
+            with self._next_lock:
+                self._next_params = params.to(self.device)
 
     def submit(
         self,
@@ -377,6 +425,29 @@ class ServingEngine:
         if pending.error is not None:
             raise pending.error
         return pending.result
+
+    def run_worker(self) -> None:
+        """A mesh engine's rank other than 0: decode this rank's block of
+        every device batch rank 0 broadcasts, and take its weight
+        updates, until rank 0 closes its engine."""
+        mesh = self._mesh
+        if mesh is None or mesh.is_main:
+            raise RuntimeError("run_worker is for a mesh engine's ranks "
+                               "other than 0")
+        while True:
+            cmd, has_scene = self._recv_header()
+            if cmd == _CMD_STOP:
+                return
+            if cmd == _CMD_PARAMS:
+                # this rank decodes nothing in between: in place is safe
+                broadcast_params(mesh, self._params)
+            elif cmd == _CMD_BATCH:
+                try:
+                    with torch.inference_mode():
+                        self._mesh_decode(self._params,
+                                          self._recv_batch(has_scene))
+                except Exception:   # noqa: BLE001 (rank 0 fails the batch)
+                    continue
 
     def close(self, batcher_timeout_s: float = 5.0,
               resolver_timeout_s: float = 30.0):
@@ -513,9 +584,105 @@ class ServingEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    def _decode(self, params, up: RawInputs) -> List[torch.Tensor]:
+        """Rasterise and decode device inputs: [trajs] for greedy,
+        [trajs, logprobs] for beam."""
+        batch = rasterize_batch(up, self.cfg, self._centers_hw)
+        if self.greedy:
+            logits, reg_out = greedy_forward(params, batch, self.cfg,
+                                             T_pred=self.T_pred)
+            return [reconstruct_greedy_trajs(logits, reg_out,
+                                             self._centers)]
+        beam, reg_out = beam_forward(params, batch, self.cfg,
+                                     T_pred=self.T_pred)
+        return [reconstruct_beam_trajs(beam.ids, reg_out, self._centers),
+                beam.logprobs]
+
+    # ---------------------------------------------- mesh (rank to rank)
+
+    def _send_header(self, cmd: int, has_scene: bool = False) -> None:
+        self._mesh.broadcast(torch.tensor(
+            [cmd, int(has_scene)], dtype=torch.int64, device=self.device))
+        self._last_collective = time.perf_counter()
+
+    def _recv_header(self):
+        hdr = self._mesh.broadcast(torch.zeros(
+            2, dtype=torch.int64, device=self.device)).tolist()
+        return hdr[0], bool(hdr[1])
+
+    def _send_params(self) -> None:
+        """Rank 0: the pending weights to every rank, then served (the
+        batches in flight finish on the module they started with)."""
+        with self._next_lock:
+            params, self._next_params = self._next_params, None
+        self._send_header(_CMD_PARAMS)
+        broadcast_params(self._mesh, params)
+        self._params = params
+
+    def _pack(self, up: RawInputs) -> torch.Tensor:
+        """[B, 3 T_obs + 1] f32: points, scene rows and pred lengths
+        (integers below 2^24, exact in f32), one broadcast."""
+        return torch.cat([up.obs_xy.reshape(self.max_batch, -1),
+                          up.obs_scene.float(),
+                          up.pred_length.float()[:, None]], dim=1)
+
+    def _recv_batch(self, has_scene: bool) -> RawInputs:
+        T = self.cfg.obs_len
+        packed = self._mesh.broadcast(torch.empty(
+            (self.max_batch, 3 * T + 1), dtype=torch.float32,
+            device=self.device))
+        scene = self._default_scene
+        if has_scene:
+            scene = self._mesh.broadcast(torch.empty_like(scene))
+        return RawInputs(
+            obs_xy=packed[:, :2 * T].reshape(self.max_batch, T, 2),
+            obs_scene=packed[:, 2 * T:3 * T].int(), scene_feat=scene,
+            pred_length=packed[:, 3 * T].int())
+
+    def _mesh_decode(self, params, up: RawInputs) -> List[torch.Tensor]:
+        """Every rank: decode this rank's block of the batch, then every
+        rank's outputs in rank order (rank 0 reads them) and, last, the
+        count of ranks whose decode raised. Such a rank still takes part
+        in the gathers, so no rank is left waiting; rank 0 fails the
+        batch when it reads a count above 0 (:meth:`_resolve`)."""
+        mesh = self._mesh
+        b = self.max_batch // mesh.world
+        lo, hi = mesh.rank * b, (mesh.rank + 1) * b
+        local = RawInputs(obs_xy=up.obs_xy[lo:hi],
+                          obs_scene=up.obs_scene[lo:hi],
+                          scene_feat=up.scene_feat,
+                          pred_length=up.pred_length[lo:hi])
+        failed = torch.zeros(1, dtype=torch.float32, device=self.device)
+        error = None
+        try:
+            outs = self._decode(params, local)
+        except Exception as exc:   # noqa: BLE001 (re-raised below)
+            error = exc
+            failed.fill_(1.0)
+            K, T = self.cfg.beam_size, self.T_pred
+            outs = [torch.zeros((b, T, 2) if self.greedy else (b, K, T, 2),
+                                device=self.device)]
+            if not self.greedy:
+                outs.append(torch.zeros((b, K), device=self.device))
+        outs = [gather_rows(mesh, o) for o in outs]
+        mesh.all_reduce_sum(failed)
+        if error is not None:
+            if not mesh.is_main:
+                traceback.print_exception(error)
+            raise error
+        return outs + [failed]
+
+    def _heartbeat(self) -> None:
+        """Rank 0, idle: a no-op now and then keeps the other ranks'
+        wait inside the group's timeout."""
+        if self._mesh is not None and self._mesh.world > 1 and \
+                time.perf_counter() - self._last_collective > _HEARTBEAT_S:
+            self._send_header(_CMD_NOOP)
+
     def _device_step(self, params, raw: RawInputs):
-        """Enqueue one batch on the device. Returns (host arrays, CUDA
-        event that marks them ready, or None on the CPU)."""
+        """Enqueue one batch on the device (on a mesh: on every rank).
+        Returns (host arrays, CUDA event that marks them ready, or None
+        on the CPU)."""
         dev = self.device
         scene = (self._default_scene if raw.scene_feat is None
                  else self._upload(raw.scene_feat))
@@ -524,18 +691,14 @@ class ServingEngine:
                        scene_feat=scene,
                        pred_length=self._upload(raw.pred_length))
         with torch.inference_mode():
-            batch = rasterize_batch(up, self.cfg, self._centers_hw)
-            if self.greedy:
-                logits, reg_out = greedy_forward(params, batch, self.cfg,
-                                                 T_pred=self.T_pred)
-                outs = [reconstruct_greedy_trajs(logits, reg_out,
-                                                 self._centers)]
+            if self._mesh is None:
+                outs = self._decode(params, up)
             else:
-                beam, reg_out = beam_forward(params, batch, self.cfg,
-                                             T_pred=self.T_pred)
-                outs = [reconstruct_beam_trajs(beam.ids, reg_out,
-                                               self._centers),
-                        beam.logprobs]
+                self._send_header(_CMD_BATCH, raw.scene_feat is not None)
+                self._mesh.broadcast(self._pack(up))
+                if raw.scene_feat is not None:
+                    self._mesh.broadcast(scene)
+                outs = self._mesh_decode(params, up)
             if dev.type != "cuda":
                 return [o.numpy() for o in outs], None
             host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
@@ -547,10 +710,20 @@ class ServingEngine:
             return host, ready
 
     def _batcher_loop(self):
-        """Stage 1: drain requests, build and enqueue a device batch."""
+        """Stage 1: drain requests, build and enqueue a device batch. On
+        a mesh it is rank 0's one thread that talks to the other ranks,
+        and it sends them the stop when it ends."""
+        try:
+            self._batch_until_stopped()
+        finally:
+            if self._mesh is not None:
+                self._send_header(_CMD_STOP)
+
+    def _batch_until_stopped(self):
         while not self._stop.is_set():
             reqs = self._drain()  # holds one in-flight slot on success
             if not reqs:
+                self._heartbeat()
                 continue
             # drop requests whose waiter already timed out and left
             live = [r for r in reqs if not r.abandoned]
@@ -561,6 +734,8 @@ class ServingEngine:
                 self._slots.release()
                 continue
             reqs = live
+            if self._next_params is not None:
+                self._send_params()
             try:
                 out = self._device_step(self._params,
                                         self._build_batch(reqs))
@@ -594,6 +769,9 @@ class ServingEngine:
             ready.synchronize()
             # copy out of page-locked memory the allocator will reuse
             host = [t.numpy().copy() for t in host]
+        if self._mesh is not None and host[-1][0] > 0:
+            raise RuntimeError("%d rank(s) of the mesh failed to decode "
+                               "their block of the batch" % host[-1][0])
         trajs_all = host[0]            # [B, T, 2] greedy, [B, K, T, 2] beam
         now = time.perf_counter()
         lats = []

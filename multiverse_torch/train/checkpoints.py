@@ -71,14 +71,17 @@ def load_checkpoint(path: str, template: Multiverse) -> Multiverse:
 
 class CheckpointManager:
     """``outpath/save`` and ``outpath/best``, each keeping the latest
-    ``max_to_keep`` steps."""
+    ``max_to_keep`` steps. ``create=False`` (a data-parallel rank other
+    than 0) reads the directories and makes nothing."""
 
-    def __init__(self, outpath: str, max_to_keep: int = 5):
+    def __init__(self, outpath: str, max_to_keep: int = 5,
+                 create: bool = True):
         self.save_dir = os.path.join(outpath, "save")
         self.best_dir = os.path.join(outpath, "best")
         self.max_to_keep = max_to_keep
-        os.makedirs(self.save_dir, exist_ok=True)
-        os.makedirs(self.best_dir, exist_ok=True)
+        if create:
+            os.makedirs(self.save_dir, exist_ok=True)
+            os.makedirs(self.best_dir, exist_ok=True)
 
     def save(self, step: int, model, best: bool = False) -> str:
         directory = self.best_dir if best else self.save_dir

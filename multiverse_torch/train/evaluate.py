@@ -36,6 +36,7 @@ def evaluate(
     save_output: Optional[str] = None,
     beam_step_fn: Optional[Callable] = None,
     only_scene: Optional[str] = None,
+    write_output: bool = True,
 ) -> Dict[str, float]:
     """Run the full split and compute the reference metric table.
 
@@ -48,6 +49,9 @@ def evaluate(
         non-matching examples entirely inside its eval loop
         (reference: SimAug/code/pred_utils.py:501-505, exposed on
         SimAug/code/test.py:50 and train.py:51).
+    write_output: False on a data-parallel rank other than 0: it makes
+        every step call rank 0 makes (``save_output`` decides whether
+        the beam step runs) but writes no pickle.
     """
     batch_size = batch_size or cfg.batch_size
     pred_len = cfg.pred_len
@@ -197,7 +201,7 @@ def evaluate(
                 perf["%s_ade" % scene] = 0.0
                 perf["%s_fde" % scene] = 0.0
 
-    if out_data is not None:
+    if out_data is not None and write_output:
         # numpy string array: the reference's evaluate_sdd parses
         # numpy.str_/bytes seq ids, not plain python str
         # (reference: SimAug/code/evaluate_sdd.py:14-19)

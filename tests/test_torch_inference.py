@@ -273,8 +273,9 @@ def test_port_never_imports_jax():
     the port and chip_smoke.py import (SimAug's and the scoring
     modules among them), the beam, greedy, int8a and int8_dyn (beam and
     greedy) paths run on the CPU, and so do one bf16 train step through
-    mvt-torch-train's own pieces, one bf16 SimAug multiview step, one
-    minADE scoring and one preprocessed split."""
+    mvt-torch-train's own pieces, one data-parallel step in a group of
+    one, one bf16 SimAug multiview step, one minADE scoring and one
+    preprocessed split."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for name in ('jax', 'jaxlib', 'multiverse_tpu'):\n"
@@ -313,11 +314,20 @@ def test_port_never_imports_jax():
         "    dataset.batch_to_device(ds.make_batch([0, 1, 2, 3])[0], 'cpu'),\n"
         "    rng=1)\n"
         "assert float(losses['total']) > 0\n"
+        "from multiverse_torch import parallel\n"
+        "def dp(mesh):\n"
+        "    m, st = parallel.init_sharded_train_state(\n"
+        "        Multiverse.init(tcfg), tx, mesh)\n"
+        "    return float(parallel.make_sharded_train_step(tcfg, tx, mesh)(\n"
+        "        m, st, parallel.shard_batch(mesh, ds.make_batch(\n"
+        "            [0, 1, 2, 3])[0]), 1)['total'])\n"
+        "assert parallel.launch(dp, parallel.make_mesh(devices=['cpu']))[0] > 0\n"
         "for name in ('models.simaug', 'data.multiview', 'cli.train_simaug',\n"
         "             'eval.multifuture', 'eval.sdd',\n"
         "             'cli.multifuture_eval_trajs',\n"
         "             'cli.multifuture_eval_trajs_prob', 'cli.evaluate_sdd',\n"
-        "             'data.preprocess', 'data.vocab', 'cli.preprocess'):\n"
+        "             'data.preprocess', 'data.vocab', 'cli.preprocess',\n"
+        "             'parallel', 'parallel.mesh'):\n"
         "    assert 'multiverse_torch.' + name in names, name\n"
         "import dataclasses\n"
         "from multiverse_torch.data import multiview\n"

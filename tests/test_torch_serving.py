@@ -306,7 +306,9 @@ def test_serving_dtype_resolution_flag_spellings():
     (["--random_init", "--reload_poll_s", "5"], "--reload_poll_s needs"),
     (["--load_from", "ckpt", "--reload_poll_s", "5"],
      "--reload_poll_s needs"),
-    (["--random_init", "--num_devices", "4"], "--num_devices 4"),
+    # serving across devices is ported; four are not visible here
+    (["--random_init", "--num_devices", "4"],
+     "--num_devices 4: expected 4 devices, found 1"),
 ])
 def test_serve_cli_refuses_what_is_not_ported(extra, match):
     with pytest.raises(SystemExit, match=match):
