@@ -189,6 +189,28 @@
    launches counted), and in an NCCL group over those GPUs (of one, on
    one card) the sharded step's and the single-process step's buffered
    steps/s and idle share, alternated twice: the cost of the group.
+10. JAX-checkpoint phase: the orbax run directory committed under
+   ``tests/torch_fixtures/jax_run`` (written by the JAX package's own
+   ``CheckpointManager``, ``tests/make_jax_fixture.py``) at the
+   published widths with both grid scales (21,337,728 parameters;
+   leaves drawn from seeded codebooks so the step takes 3.7 MB, remade
+   here by ``fixture_leaf``), read on this machine, which has no orbax,
+   tensorstore or zstandard (and the port imports no JAX).
+   The zstd decoder is built (g++; seconds printed); the step is read
+   through ``read_checkpoint_tree`` and must equal the leaves made from
+   the seed at tolerance 0 (host seconds and MB/s printed); the frame
+   of a leaf of plain random weights is decoded alone (MB/s printed, and
+   the seconds a published-width checkpoint of such frames would take
+   at that rate); ``load_checkpoint`` at ``use_grids 1,0`` must equal
+   those leaves pruned. ``mvt-torch-serve``'s own ``main`` then serves a
+   copy of that run directory from the directory (no --load_from) in
+   its cuda tier (bf16 + int8a, beam max_batch 8, K = 20) at the
+   published widths: K3 held against its plain version at the engine's
+   160 rows, 8 requests from 4 threads (checked as in 4.), and one
+   response within 1e-3 of a direct forward on the seed's weights.
+   Last, ``run_multifuture_inference`` with the copy's ``save``
+   directory as its ``model_path``, in bf16 (K1), on 16 trajectories,
+   checked as in 3. Its K1 and K3 launches are added to the paths'.
 
 Prints one JSON line describing the kernels, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero;
@@ -216,12 +238,14 @@ import json
 import os
 import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import zlib
 from unittest import mock
 
 import numpy as np
@@ -236,7 +260,11 @@ from multiverse_torch.cli import train as train_cli
 from multiverse_torch.cli import train_simaug as simaug_cli
 from multiverse_torch.config import MultiverseConfig
 from multiverse_torch import parallel
-from multiverse_torch.bridge import load_params_npz, load_params_tree
+from multiverse_torch.bridge import (
+    load_params_npz,
+    load_params_tree,
+    prune_to_template,
+)
 from multiverse_torch.data.dataset import batch_to_device, read_data
 from multiverse_torch.data.multiview import (
     MultiviewDataset,
@@ -244,6 +272,7 @@ from multiverse_torch.data.multiview import (
 )
 from multiverse_torch.geometry import one_hot_grid
 from multiverse_torch.models import Multiverse, simaug
+from multiverse_torch.native import zstd
 from multiverse_torch.models.simaug import SimAugConfig
 from multiverse_torch.ops import (
     ConvLSTMState,
@@ -314,7 +343,10 @@ from multiverse_torch.train.checkpoints import (
     CheckpointManager,
     list_steps,
     load_checkpoint,
+    read_checkpoint_tree,
 )
+from multiverse_torch.train.ocdbt import OcdbtReader
+from multiverse_torch.train.orbax_reader import orbax_steps
 
 TOL = 2e-2
 # least share of the q8 kernels' int8 gate inputs (h2_q) equal to the
@@ -427,6 +459,55 @@ PGD_FLAGS = ["--batch_size", "12", "--init_lr", "0.3", "--adv_train",
 QUICKSTART_FLAGS = ["--use_gnn", "--use_scene_enc", "--use_beam_search",
                     "--beam_size", "20", "--diverse_beam",
                     "--diverse_gamma", "0.01", "--fix_num_timestep", "1"]
+
+
+# phase 10's run directory of the JAX package (tests/make_jax_fixture.py):
+# the published widths with both grid scales (21,337,728 parameters,
+# 85.35 MB of f32). Its leaves are made by fixture_leaf, not stored
+# beside it: a leaf of more than FIXTURE_PLAIN_MAX values is blocks of
+# FIXTURE_BLOCK values drawn from a codebook of FIXTURE_BOOK such blocks,
+# whose zstd frames (FSE-coded sequences over a Huffman-coded codebook)
+# take 3.4 MB where random weights take 79 MB; a smaller leaf is plain
+# random weights, as a trained checkpoint's frames are (Huffman-coded
+# literals, hardly any matches)
+JAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "torch_fixtures", "jax_run")
+FIXTURE_GRIDS = (True, True)
+FIXTURE_SEED, FIXTURE_BLOCK, FIXTURE_BOOK = 11, 16, 256
+FIXTURE_PLAIN_MAX = 1 << 16
+# the plain-weights leaf whose frame phase 10 times alone
+FIXTURE_PLAIN_LEAF = "scene_conv2/w"
+
+
+def fixture_leaf(name: str, shape) -> np.ndarray:
+    """The committed JAX fixture's leaf ``name`` (``scales/0/dec_class/
+    kernel``) of ``shape``, made from the seed and the name alone (the
+    legacy ``RandomState``, whose streams numpy keeps fixed), here and
+    by ``tests/make_jax_fixture.py`` that wrote it."""
+    shape = tuple(shape)
+    n = int(np.prod(shape, dtype=np.int64))
+    rng = np.random.RandomState(
+        (FIXTURE_SEED * 7919 + zlib.crc32(name.encode())) % (1 << 32))
+    std = 1 / np.sqrt(np.prod(shape[:-1])) if len(shape) > 1 else 0.1
+    if n <= FIXTURE_PLAIN_MAX:
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+    book = (rng.standard_normal((FIXTURE_BOOK, FIXTURE_BLOCK)) * std) \
+        .astype(np.float32)
+    pick = rng.randint(0, FIXTURE_BOOK, -(-n // FIXTURE_BLOCK))
+    return book[pick].reshape(-1)[:n].reshape(shape)
+
+
+def fixture_tree(template: Multiverse) -> dict:
+    """The fixture's leaves of ``template``'s names and shapes, as the
+    nested dict ``read_checkpoint_tree`` returns."""
+    tree: dict = {}
+    for name, p in template.named_parameters():
+        *parents, leaf = name.split(".")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = fixture_leaf("/".join(parents + [leaf]), p.shape)
+    return tree
 
 
 def flagship_config(**kw) -> MultiverseConfig:
@@ -2677,6 +2758,149 @@ def step_throughput(what: str, run_step, batch_size: int) -> dict:
     return result
 
 
+# ----------------------------------------------------------- JAX checkpoint
+
+
+def jax_checkpoint_phase(dev, tmp: str, card: str) -> dict:
+    """Phase 10: the JAX package's orbax run directory read, served and
+    decoded by the port alone (no orbax, tensorstore or zstandard).
+    Returns the main-path launches of K1 and K3."""
+    t0 = time.perf_counter()
+    zstd.load()
+    print("jax checkpoint: zstd decoder built and loaded in %.3f s (g++ "
+          "-O3 on this host)" % (time.perf_counter() - t0))
+    src_save = os.path.join(JAX_FIXTURE, "multiverse", "00", "save")
+    step, step_dir = orbax_steps(src_save)[-1]
+    disk = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(step_dir) for f in files)
+    t0 = time.perf_counter()
+    tree = read_checkpoint_tree(src_save)
+    read_s = time.perf_counter() - t0
+    got = dict(zip(_flat_names(tree), _flat_leaves(tree)))
+    full = Multiverse.init(MultiverseConfig(
+        use_gnn=True, use_scene_enc=True, use_grids=FIXTURE_GRIDS).validate())
+    want_tree = fixture_tree(full)
+    want = dict(zip(_flat_names(want_tree), _flat_leaves(want_tree)))
+    if sorted(got) != sorted(want):
+        raise AssertionError("jax checkpoint: the names read differ from "
+                             "the published (1,1) model's")
+    unequal = [k for k in want if got[k].shape != want[k].shape
+               or not np.array_equal(got[k], want[k])]
+    if unequal:
+        raise AssertionError(f"jax checkpoint: {unequal} differ from the "
+                             "leaves made from the fixture's seed")
+    f32 = 4 * sum(v.size for v in got.values())
+    print("jax checkpoint: step %d at the published widths (%d leaves, %d "
+          "parameters) equal to the leaves made from its seed at tolerance "
+          "0; host read %.4f s: %.1f MB/s of files (%d bytes, mostly "
+          "codebook frames), %.1f MB/s of f32 (%s)"
+          % (step, len(got), f32 // 4, read_s, disk / read_s / 1e6, disk,
+             f32 / read_s / 1e6, card))
+    # the decoder alone on the frame of a leaf of plain random weights
+    # (Huffman-coded literals), as a trained checkpoint's frames are
+    db = OcdbtReader(os.path.join(step_dir, "default"))
+    key = "params." + FIXTURE_PLAIN_LEAF.replace("/", ".")
+    shape = json.loads(db.read(key + "/.zarray"))["shape"]
+    chunk = db.read(key + "/" + ".".join("0" * len(shape)))
+    out_bytes, reps = 4 * int(np.prod(shape)), 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        zstd.decompress(chunk, out_bytes)
+    frame_s = (time.perf_counter() - t0) / reps
+    rate = out_bytes / frame_s / 1e6
+    print("jax checkpoint: the %d-byte frame of %s (plain random f32, %d "
+          "bytes out) decoded in %.6f s: %.1f MB/s of f32; %.2f MB of such "
+          "frames (a published-width checkpoint of trained or random "
+          "weights) at that rate: %.3f s (%s)"
+          % (len(chunk), FIXTURE_PLAIN_LEAF, out_bytes, frame_s, rate,
+             f32 / 1e6, f32 / 1e6 / rate, card))
+    cfg = flagship_config()
+    model = load_checkpoint(src_save, Multiverse.init(cfg))
+    expected = prune_to_template(want_tree, Multiverse.init(cfg))
+    have = dict(model.named_parameters())
+    if sorted(have) != sorted(n for n, _ in expected.named_parameters()) \
+            or not all(torch.equal(have[n], q)
+                       for n, q in expected.named_parameters()):
+        raise AssertionError("jax checkpoint: load_checkpoint at use_grids "
+                             "1,0 differs from the fixture's leaves pruned")
+
+    outbase = os.path.join(tmp, "jax_out")
+    shutil.copytree(os.path.join(JAX_FIXTURE, "multiverse"),
+                    os.path.join(outbase, "multiverse"))
+    save_dir = os.path.join(outbase, "multiverse", "00", "save")
+    expected = expected.to(dev)
+    launches = {"K1": 0, "K3": 0}
+
+    def drive(server):
+        """In place of the front end's wait: the phase's traffic."""
+        engine = server.engine
+        scfg = engine.cfg
+        if (scfg.compute_dtype, scfg.decode_quant, engine.max_batch,
+                scfg.beam_size, scfg.dec_hidden_size) != (
+                "bfloat16", "int8a", 8, 20, 256):
+            raise AssertionError(
+                "jax checkpoint: served %s + %s, max_batch %d, K = %d, "
+                "D = %d" % (scfg.compute_dtype, scfg.decode_quant,
+                            engine.max_batch, scfg.beam_size,
+                            scfg.dec_hidden_size))
+        NK = engine.max_batch * scfg.beam_size
+        ops, quant, H, W = kernel_operands(engine._params, scfg, dev, NK)
+        q8 = {k: v for k, v in ops.items()
+              if k not in ("cell_w", "emb_table")}
+        check_q8("K3 at the JAX checkpoint's %d rows" % NK, quant, q8, H, W,
+                 attn_q8=True)
+        rng = np.random.RandomState(6)
+        obs = [np.stack([rng.uniform(0, scfg.video_w, scfg.obs_len),
+                         rng.uniform(0, scfg.video_h, scfg.obs_len)],
+                        axis=1).astype(np.float32) for _ in range(8)]
+        pred_lens = rng.randint(1, engine.T_pred + 1, len(obs))
+        launches["K3"] += serve_burst(
+            engine, scfg, server, "jax checkpoint step %d (asyncio)" % step,
+            obs, pred_lens, n_threads=4)
+        T = engine.T_pred
+        client = PredictionClient(port=server.port, binary=True)
+        try:
+            answer = client.predict(obs[0], pred_len=T)
+        finally:
+            client.close()
+        trajs, logprobs = direct_forward(engine, scfg, obs[0], T,
+                                         params=expected)
+        diffs = {"logprobs": float(np.abs(answer["logprobs"]
+                                          - logprobs).max()),
+                 "trajs": float(np.abs(answer["trajs"] - trajs).max())}
+        print("jax checkpoint: a served response vs a direct forward on "
+              "the seed's weights: max abs diffs %s" % diffs)
+        if not max(diffs.values()) <= 1e-3:
+            raise AssertionError("jax checkpoint: the served response does "
+                                 "not follow the checkpoint's weights")
+
+    with mock.patch.object(AsyncPredictionServer, "wait", drive):
+        serve.main([outbase, "multiverse", "--port", "0", *QUICKSTART_FLAGS])
+
+    # the offline decode, as mvt-torch-multifuture-inference loads its
+    # model_path (the save directory), in bf16: K1
+    omodel = inference_cli.load_model(save_dir, cfg)
+    inputs = inference.synthesize_multifuture_inputs(cfg, 16, seed=5)
+    launches["K1"] += offline_run(omodel, cfg, inputs, dev, "none")
+    return launches
+
+
+def _flat_names(tree, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_names(v, prefix + k + "/")
+        else:
+            yield prefix + k
+
+
+def _flat_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _flat_leaves(v)
+        else:
+            yield v
+
+
 def wmma_shares(tree: str) -> None:
     """The K1 shares of the library built from another checkout's
     ``multiverse_torch/csrc`` (its ``_build.py``, loaded as a file: it
@@ -2824,6 +3048,10 @@ def main() -> int:
     for k in ("K1", "K4", "K5"):
         launches[k] += simaug_run[k]
     elapsed("simaug phase")
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, n in jax_checkpoint_phase(dev, tmp, smi.stdout.strip()).items():
+            launches[k] += n
+    elapsed("jax-checkpoint phase")
     for k, fn in PATHLESS.items():
         launches[k] = fn.launches
     print("main path launches of K6, K8, K9 (no path of the port or of the "

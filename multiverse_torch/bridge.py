@@ -3,6 +3,10 @@
 * :func:`params_from_jax` takes the JAX package's ``init_params`` tree
   turned to numpy (``jax.tree_util.tree_map(np.asarray, params)``) and
   returns a module with the same names and values;
+  ``train/orbax_reader.read_params_tree`` returns that tree from the
+  JAX package's checkpoint files (its orbax steps) with no JAX, so the
+  same function takes weights from either; the names and the HWIO
+  layout are the same, so no conversion is needed;
   :func:`params_to_numpy_tree` is its inverse (a trained module back to
   the JAX layout, as numpy);
 * :func:`save_params_npz` / :func:`load_params_npz` keep a flat npz

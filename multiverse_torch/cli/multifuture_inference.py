@@ -4,8 +4,9 @@ trajectories.
 Same arguments and output pickles as ``mvt-multifuture-inference``
 (``--greedy`` decodes one future and writes it ``--num_out`` times;
 ``--decode_quant int8|int8a|int8_dyn`` runs the int8 tiers' kernels).
-``model_path`` is an npz checkpoint of the port or a ``save``/``best``
-directory (its latest step), pruned to the configuration's parameters
+``model_path`` is an npz checkpoint of the port, an orbax step
+directory of the JAX package (``<save>/<step>``), or a ``save``/``best``
+directory of either (its latest step), pruned to the configuration's parameters
 as the JAX package prunes a checkpoint that holds more grid scales.
 Two additions: ``--device`` picks the device (default cuda), and
 ``--random_init`` decodes seeded random weights (seed 0) instead of
@@ -29,7 +30,8 @@ from multiverse_torch.train.checkpoints import load_checkpoint
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("model_path",
-                        help="npz checkpoint or save/best directory")
+                        help="npz checkpoint, orbax step directory of the "
+                        "JAX package, or a save/best directory of either")
     parser.add_argument("traj_path", help="obs trajectory TSVs")
     parser.add_argument("multifuture_path", help="GT future pickles")
     parser.add_argument("output_file")

@@ -3,20 +3,23 @@
 Serves HTTP predictions through the dynamic-batching engine
 (``multiverse_torch/serving/engine.py``) with the flags of the JAX
 package's ``mvt-serve`` and its load paths: ``--random_init``,
-``--load_from`` (an npz checkpoint or a ``save``/``best`` directory),
-or else the run directory ``outbasepath/modelname/runId`` (its ``save``
-steps, or ``best`` with ``--load_best``). The weights are pruned to the
+``--load_from`` (an npz checkpoint, an orbax step directory of the JAX
+package, or a ``save``/``best`` directory of either), or else the run
+directory ``outbasepath/modelname/runId`` (its ``save`` steps, or
+``best`` with ``--load_best``), written by the port or the JAX
+package. The weights are pruned to the
 configuration's, as the JAX package prunes a checkpoint that holds more
 grid scales. ``--reload_poll_s N`` re-lists that run directory every N
 seconds and swaps a newer step into the engine without dropping
-traffic (a failed restore keeps the served weights). Differences:
+traffic (a failed restore keeps the served weights), so it follows a
+JAX trainer's orbax steps as ``mvt-serve`` does. Differences:
 
 * ``--device`` picks the device (default cuda); ``--num_devices N``
   (0: every visible GPU) shards each served batch over N devices, one
   process a device (``multiverse_torch/parallel``), and fails where
   fewer are visible;
-* checkpoints are the port's npz steps (``train/checkpoints.py``), not
-  orbax directories.
+* the port saves npz steps (``train/checkpoints.py``); it reads those
+  and the JAX package's orbax steps alike.
 
     mvt-torch-serve out model --use_gnn --use_scene_enc \\
         --use_beam_search --beam_size 20 --diverse_beam --reload_poll_s 30
@@ -37,7 +40,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from multiverse_torch.bridge import load_params_tree
 from multiverse_torch.cli.common import add_model_args, config_from_args
 from multiverse_torch.models import Multiverse
 from multiverse_torch.parallel import Mesh, launch, make_mesh
@@ -46,6 +48,7 @@ from multiverse_torch.serving.server import PredictionServer
 from multiverse_torch.train.checkpoints import (
     list_steps,
     load_checkpoint,
+    read_checkpoint_tree,
     run_dir,
 )
 
@@ -60,8 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--runId", type=int, default=0)
     parser.add_argument("--load_best", action="store_true")
     parser.add_argument("--load_from", type=str, default=None,
-                        help="an npz checkpoint, or a save/best directory "
-                             "(its latest step)")
+                        help="an npz checkpoint, an orbax step directory "
+                             "of the JAX package, or a save/best directory "
+                             "of either (its latest step)")
     parser.add_argument("--random_init", action="store_true",
                         help="serve seeded random weights (smoke tests)")
     parser.add_argument("--device", default="cuda")
@@ -160,7 +164,7 @@ def reload_once(engine: ServingEngine, directory: str,
         if not steps or steps[-1][0] == served_step:
             return served_step
         step, path = steps[-1]
-        engine.update_params(load_params_tree(path))
+        engine.update_params(read_checkpoint_tree(path))
     except Exception as exc:   # keep serving the old weights
         print(f"{PROG}: reload failed ({exc}); keeping current weights",
               file=sys.stderr)

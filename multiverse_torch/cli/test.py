@@ -1,10 +1,12 @@
 """mvt-torch-test: single-future evaluation of a trained checkpoint.
 
 The counterpart of ``mvt-test`` (``multiverse_tpu/cli/test.py``;
-reference: code/test.py): loads the test split, restores the port's
-checkpoint (the latest of ``save``, or of ``best`` with
-``--load_best``, or ``--load_from`` an npz file or directory, pruned to
-the configuration's parameters as the JAX package prunes), runs the
+reference: code/test.py): loads the test split, restores a checkpoint
+of the port or of the JAX package (the latest step of the run
+directory's ``save``, or of ``best`` with ``--load_best``, npz or
+orbax; or ``--load_from`` an npz file, an orbax step directory or a
+``save``/``best`` directory), pruned to the configuration's parameters
+as the JAX package prunes, runs the
 full evaluate loop and prints the metric table in the same format.
 ``--device`` picks the device (default cuda: the eval and the beam
 decode shard each batch over every visible GPU, the world the largest
@@ -49,7 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--runId", type=int, default=0)
     parser.add_argument("--load_best", action="store_true")
     parser.add_argument("--load_from", type=str, default=None,
-                        help="an npz checkpoint, or a save/best directory")
+                        help="an npz checkpoint, an orbax step directory "
+                             "of the JAX package, or a save/best directory "
+                             "of either (its latest step)")
     parser.add_argument("--batch_size", type=int, default=64)
     parser.add_argument("--save_output", default=None)
     parser.add_argument("--use_gt_grid", action="store_true")

@@ -18,8 +18,10 @@ and ``val_perf.json``. Differences:
 * checkpoints are the port's npz files (``train/checkpoints.py``),
   which ``mvt-torch-test``, ``mvt-torch-serve`` and
   ``mvt-torch-multifuture-inference`` read from the run directory or as
-  a file; ``--load``/``--load_best``/``--load_from`` read them (a
-  checkpoint with more grid scales pruned to the model), not orbax runs;
+  a file; ``--load``/``--load_best``/``--load_from`` read them and the
+  JAX package's orbax steps alike (a checkpoint with more grid scales
+  pruned to the model); on a JAX run directory, new saves continue
+  above its latest orbax step, and none of its steps is deleted;
 * ``--profile`` writes a ``torch.profiler`` trace.
 
 On the card with ``--compute_dtype bfloat16`` the class decoder's graph
@@ -81,8 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--load", action="store_true")
     parser.add_argument("--load_best", action="store_true")
     parser.add_argument("--load_from", type=str, default=None,
-                        help="an npz checkpoint, or a save/best directory "
-                             "of the port")
+                        help="an npz checkpoint, an orbax step directory "
+                             "of the JAX package, or a save/best directory "
+                             "of either (its latest step)")
     parser.add_argument("--val_grid_num", type=int, default=0,
                         help="which grid scale for the validation metric")
     parser.add_argument("--save_period", type=int, default=300)

@@ -13,8 +13,9 @@ As in ``mvt-torch-train``:
   ``--device cpu`` runs the plain PyTorch versions of the kernels);
 * one device: ``--model_parallel`` other than 1 is refused;
 * checkpoints are the port's npz files (``train/checkpoints.py``);
-  ``--load``/``--load_best``/``--load_from`` read them and refuse the
-  JAX package's orbax runs.
+  ``--load``/``--load_best``/``--load_from`` read them and the JAX
+  package's orbax steps alike, and new saves continue above a JAX run
+  directory's latest step without deleting any of its steps.
 
 On the card with ``--compute_dtype bfloat16`` every tower pass (the
 attack's and the outer step's) runs the class decoder's graph attention
@@ -71,8 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--load", action="store_true")
     parser.add_argument("--load_best", action="store_true")
     parser.add_argument("--load_from", type=str, default=None,
-                        help="an npz checkpoint, or a save/best directory "
-                             "of the port")
+                        help="an npz checkpoint, an orbax step directory "
+                             "of the JAX package, or a save/best directory "
+                             "of either (its latest step)")
     parser.add_argument("--val_grid_num", type=int, default=0)
     parser.add_argument("--only_scene", default=None,
                         help="restrict the in-training val eval to one "

@@ -7,12 +7,14 @@ A save holds the parameters only, as ``mvt-train`` saves them: one flat
 npz per step (``step_00000300.npz``) in ``bridge.save_params_npz``'s
 format, written under a temporary name and renamed, so a reader never
 sees half a file. Every command of the port reads them the same way
-(:func:`load_checkpoint`): an npz file, or the latest step of a
-``save``/``best`` directory, pruned to the configuration's parameters
+(:func:`load_checkpoint`): an npz file, a step directory of the JAX
+package's orbax checkpoints (``<save>/<step>``, read by
+:mod:`.orbax_reader`), or the latest step of a ``save``/``best``
+directory that holds either, pruned to the configuration's parameters
 as the JAX package restores a checkpoint that holds more grid scales
 than the model uses. ``mvt-torch-serve --reload_poll_s`` polls a
-``save``/``best`` directory for new steps (:func:`list_steps`). The JAX
-package's orbax directories are not read by the port yet.
+``save``/``best`` directory for new steps (:func:`list_steps`). The
+port never deletes an orbax step.
 """
 
 from __future__ import annotations
@@ -27,14 +29,19 @@ from multiverse_torch.bridge import (
     save_params_npz,
 )
 from multiverse_torch.models import Multiverse
+from multiverse_torch.train.orbax_reader import (
+    is_orbax_step,
+    orbax_steps,
+    read_params_tree,
+)
 
 _STEP = re.compile(r"^step_(\d+)\.npz$")
 
 
-def list_steps(directory: str) -> List[Tuple[int, str]]:
-    """(step, path) of every checkpoint in ``directory``, by step, read
-    afresh on every call. A save still under its temporary name
-    (``step_X.npz.tmp.npz``) is not a step."""
+def _npz_steps(directory: str) -> List[Tuple[int, str]]:
+    """(step, path) of the port's own npz steps in ``directory``. A save
+    still under its temporary name (``step_X.npz.tmp.npz``) is not a
+    step."""
     if not os.path.isdir(directory):
         return []
     found = []
@@ -45,28 +52,51 @@ def list_steps(directory: str) -> List[Tuple[int, str]]:
     return sorted(found)
 
 
+def list_steps(directory: str) -> List[Tuple[int, str]]:
+    """(step, path) of every checkpoint in ``directory``, by step, read
+    afresh on every call: the port's npz steps and the JAX package's
+    finished orbax steps (one in flight is not listed). Raises
+    ``ValueError`` where one step number is held by both."""
+    npz = dict(_npz_steps(directory))
+    found = dict(orbax_steps(directory))
+    both = sorted(set(npz) & set(found))
+    if both:
+        raise ValueError("step %d is held twice: %s and %s"
+                         % (both[0], npz[both[0]], found[both[0]]))
+    found.update(npz)
+    return sorted(found.items())
+
+
 def resolve_checkpoint(path: str) -> str:
-    """An npz file, or the latest step of a ``save``/``best`` directory.
-    Raises on a directory that holds no port checkpoint (an orbax
-    directory of the JAX package among them)."""
-    if os.path.isfile(path):
+    """An npz file, an orbax step directory, or the latest step of a
+    ``save``/``best`` directory. Raises on a directory that holds no
+    finished checkpoint."""
+    if os.path.isfile(path) or is_orbax_step(path):
         return path
     steps = list_steps(path)
     if steps:
         return steps[-1][1]
     if os.path.isdir(path) and any(n.isdigit() for n in os.listdir(path)):
         raise ValueError(
-            "%s looks like an orbax checkpoint of the JAX package; the "
-            "port reads only its own npz checkpoints" % path)
+            "%s holds step directories but no finished orbax step (each "
+            "needs _CHECKPOINT_METADATA and default/manifest.ocdbt)" % path)
     raise FileNotFoundError("no checkpoint in %s" % path)
+
+
+def read_checkpoint_tree(path: str) -> dict:
+    """The parameters of ``path`` (see :func:`resolve_checkpoint`) as a
+    nested dict of numpy arrays, from an npz or an orbax step alike."""
+    path = resolve_checkpoint(path)
+    if os.path.isdir(path):
+        return read_params_tree(path)
+    return load_params_tree(path)
 
 
 def load_checkpoint(path: str, template: Multiverse) -> Multiverse:
     """The parameters of ``path`` (see :func:`resolve_checkpoint`) that
     ``template`` has (``Multiverse.init(cfg)``), as a module on the CPU:
     ``bridge.prune_to_template``'s names, errors and checks."""
-    return prune_to_template(load_params_tree(resolve_checkpoint(path)),
-                             template)
+    return prune_to_template(read_checkpoint_tree(path), template)
 
 
 class CheckpointManager:
@@ -89,7 +119,8 @@ class CheckpointManager:
         tmp = path + ".tmp.npz"
         save_params_npz(model, tmp)
         os.replace(tmp, path)   # a reader never sees half a file
-        for _, old in list_steps(directory)[:-self.max_to_keep]:
+        # only the port's own steps count and go: a JAX step stays
+        for _, old in _npz_steps(directory)[:-self.max_to_keep]:
             os.remove(old)
         return path
 

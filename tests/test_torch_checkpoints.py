@@ -246,7 +246,8 @@ def test_loaders_accept_a_superset_checkpoint(loader, superset, prepro,
 
 def test_resolve_checkpoint_and_the_run_directory(tmp_path):
     """An npz file, the latest step of a directory (a save under its
-    temporary name is not a step), an orbax directory refused; and
+    temporary name is not a step), a directory whose step directory is
+    not a finished orbax step refused; and
     ``mvt-torch-serve``'s run-directory path: ``save``'s latest step,
     ``best``'s with --load_best, the step it loaded, and an error where
     the run holds none."""

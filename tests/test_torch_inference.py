@@ -269,16 +269,19 @@ def test_cuda_request_raises_without_cuda():
 
 
 def test_port_never_imports_jax():
-    """With jax and the JAX package made unimportable, every module of
-    the port and chip_smoke.py import (SimAug's and the scoring
-    modules among them), the beam, greedy, int8a and int8_dyn (beam and
-    greedy) paths run on the CPU, and so do one bf16 train step through
-    mvt-torch-train's own pieces, one data-parallel step in a group of
-    one, one bf16 SimAug multiview step, one minADE scoring and one
-    preprocessed split."""
+    """With jax, the JAX package, orbax, tensorstore and zstandard made
+    unimportable, every module of the port and chip_smoke.py import
+    (SimAug's and the scoring modules among them), the beam, greedy,
+    int8a and int8_dyn (beam and greedy) paths run on the CPU, and so do
+    one bf16 train step through mvt-torch-train's own pieces, one
+    data-parallel step in a group of one, one bf16 SimAug multiview step,
+    one minADE scoring, one preprocessed split, and the read of the
+    committed orbax checkpoint of the JAX package (equal to the leaves
+    made from its seed)."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "for name in ('jax', 'jaxlib', 'multiverse_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'multiverse_tpu', 'orbax',\n"
+        "             'tensorstore', 'zstandard'):\n"
         "    sys.modules[name] = None      # any import of them raises\n"
         "import multiverse_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
@@ -359,8 +362,23 @@ def test_port_never_imports_jax():
         "                     for t in range(20))\n"
         "    assert preprocess.preprocess_split(tmp, 'train',\n"
         "        os.path.join(tmp, 'd.npz'), preprocess.PreprocessOptions())\n"
+        "import numpy as np\n"
+        "from multiverse_torch.train.checkpoints import load_checkpoint\n"
+        "import chip_smoke\n"
+        "fsave = os.path.join(chip_smoke.JAX_FIXTURE, 'multiverse', '00',\n"
+        "                     'save')\n"
+        "fcfg = MultiverseConfig(use_gnn=True,\n"
+        "                        use_scene_enc=True).validate()\n"
+        "fmodel = load_checkpoint(fsave, Multiverse.init(fcfg))\n"
+        "fwant = chip_smoke.fixture_tree(fmodel)\n"
+        "for n, p in fmodel.named_parameters():\n"
+        "    node = fwant\n"
+        "    for k in n.split('.'):\n"
+        "        node = node[k]\n"
+        "    assert np.array_equal(p.detach().numpy(), node), n\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
-        "             and m.startswith(('jax', 'multiverse_tpu')))\n"
+        "             and m.startswith(('jax', 'multiverse_tpu', 'orbax',\n"
+        "                               'tensorstore', 'zstandard')))\n"
         "print('MODULES', len(names), 'JAX_MODULES', bad)\n"
         "sys.exit(1 if bad or len(names) < 20 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -5,8 +5,8 @@ scene encoder forced on) plus ``--device`` and ``--model_parallel``;
 mixup, double weighting, dropout) writes config.json with the SimAug
 fields, npz ``{save,best}`` checkpoints that load back and
 ``val_perf.json``, and resumes with ``--load`` above its last step; it
-refuses an orbax ``--load_from``, ``--model_parallel`` other than 1 and
-the scene encoder off."""
+refuses a ``--load_from`` whose step directory is not a finished orbax
+step, ``--model_parallel`` other than 1 and the scene encoder off."""
 
 import json
 import os
