@@ -211,6 +211,28 @@
    Last, ``run_multifuture_inference`` with the copy's ``save``
    directory as its ``model_path``, in bf16 (K1), on 16 trajectories,
    checked as in 3. Its K1 and K3 launches are added to the paths'.
+11. Tensor-parallel phase (``multiverse_torch/parallel/tensor.py``), on
+   phase 6's newest step and TP_EXAMPLES generated examples: (a) two
+   gloo ranks on cuda:0 at dp 1 x mp 2 (``make_mesh(devices=["cuda:0"]
+   * 2, model_parallel=2)``), each holding its block of every sharded
+   weight and the optimizer slots made from it, train TP_STEPS steps on
+   one batch of 20 (the published bf16 configuration, K4/K5 on every
+   model rank); the ranks' losses must be equal, within DP_UPDATE_RTOL
+   of the single process's on the same weights and batch, and the
+   gathered whole weights and their update within DP_UPDATE_RTOL
+   (relative L2) of the single process's; then one step on the dp 2 x
+   mp 2 grid of four ranks on the card, held the same way; (b) each
+   rank's bytes of weights and slots beside the single process's, and
+   the share of leaves sharded; (c) steps/s, each rank's device busy
+   time a step, the card's idle share, and the model group's
+   all-reduces and their bytes in one step; (d) K4/K5 TP_STEPS x 12 a
+   rank and K1 12 a rank in one sharded eval of the gathered weights;
+   (e) ``mvt-torch-train``'s rank worker with ``--model_parallel 2`` on
+   those two ranks (``--load_from`` the same step, TP_STEPS epochs of
+   the 20 examples, a save at the end): its saved step must equal the
+   whole weights it gathered at tolerance 0 and (a)'s within
+   DP_UPDATE_RTOL, and ``mvt-torch-test`` evaluates it in one process
+   on the card (K1).
 
 Prints one JSON line describing the kernels, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero;
@@ -257,6 +279,7 @@ from multiverse_torch.cli import multifuture_inference as inference_cli
 from multiverse_torch.cli import preprocess as preprocess_cli
 from multiverse_torch.cli import serve
 from multiverse_torch.cli import train as train_cli
+from multiverse_torch.cli import test as test_cli
 from multiverse_torch.cli import train_simaug as simaug_cli
 from multiverse_torch.config import MultiverseConfig
 from multiverse_torch import parallel
@@ -265,7 +288,11 @@ from multiverse_torch.bridge import (
     load_params_tree,
     prune_to_template,
 )
-from multiverse_torch.data.dataset import batch_to_device, read_data
+from multiverse_torch.data.dataset import (
+    batch_to_device,
+    read_data,
+    synthesize_prepro,
+)
 from multiverse_torch.data.multiview import (
     MultiviewDataset,
     synthesize_multiview_prepro,
@@ -2235,7 +2262,8 @@ def nccl_group_of_one(mesh):
     store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True)
     dist.init_process_group("nccl", store=store, rank=0, world_size=1)
     try:
-        yield dataclasses.replace(mesh, group=dist.group.WORLD)
+        yield dataclasses.replace(mesh, group=dist.group.WORLD,
+                                  data_group=dist.group.WORLD)
     finally:
         dist.destroy_process_group()
 
@@ -2501,6 +2529,272 @@ def multi_device_phase(dev, tmp: str, single_step: dict) -> dict:
              nccl["step_collectives"], cfg.batch_size // world,
              readings("sharded"), readings("single"),
              single_step["steps_s"], single_step["idle"]))
+    return launches
+
+
+# ------------------------------------------------------ tensor parallelism
+
+# phase 11: two ranks share cuda:0 at dp 1 x mp 2, TP_STEPS steps on one
+# batch of TP_EXAMPLES generated examples from the trained run's newest
+# step, then mvt-torch-train --model_parallel 2 over the same examples
+# for TP_STEPS epochs; the 4-rank grid (dp 2 x mp 2) takes one step
+TP_MP, TP_STEPS, TP_EXAMPLES = 2, 3, 20
+# mvt-torch-test's flags for that run (TRAIN_FLAGS' model flags)
+TP_TEST_FLAGS = ["--batch_size", "20", "--use_gnn", "--use_scene_enc",
+                 "--use_soft_grid_class", "--soft_grid", "1",
+                 "--scene_grid_strides", "2,4", "--use_grids", "1,0",
+                 "--compute_dtype", "bfloat16", "--device", "cuda:0"]
+
+
+def tp_state_bytes(model, opt_state) -> int:
+    """Bytes of a rank's parameters and optimizer slots."""
+    slots = [t for v in opt_state.values() if isinstance(v, dict)
+             for t in v.values()]
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + slots)
+
+
+def tp_rank(mesh, spec: dict) -> dict:
+    """One rank of phase 11's gloo ranks on cuda:0: ``spec["steps"]``
+    tensor-parallel train steps on the rank's data block (K4/K5 counted,
+    the model group's collectives of one step), the gathered whole
+    weights, the rank's bytes of weights and slots; with ``timed``,
+    timed steps and one sharded eval (K1). Returns what the parent
+    checks (the whole weights on rank 0 only)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = train_config()
+    shard = parallel.shard_batch(mesh, dp_train_batch(spec["prepro"], cfg))
+    # the schedule mvt-torch-train makes for TP_EXAMPLES examples
+    tx = trainer.build_optimizer(cfg, TP_EXAMPLES)
+    model, opt_state = parallel.init_sharded_train_state(
+        load_checkpoint(spec["ckpt"], Multiverse.init(cfg)), tx, mesh)
+    out = {"rank": mesh.rank, "state_bytes": tp_state_bytes(model, opt_state),
+           "sharded": sum(getattr(p, "shard", None) is not None
+                          for p in model.parameters()),
+           "leaves": len(list(model.parameters())), "losses": []}
+    step = parallel.make_sharded_train_step(cfg, tx, mesh)
+    reset_launches()
+    for i in range(spec["steps"]):
+        calls, nbytes = mesh.model_collectives, mesh.model_bytes
+        out["losses"].append(float(step(model, opt_state, shard)["total"]))
+        if i == 0:
+            out["step_collectives"] = mesh.model_collectives - calls
+            out["step_bytes"] = mesh.model_bytes - nbytes
+    torch.cuda.synchronize()
+    out["K4"], out["K5"] = gnn_dense_fwd.launches, gnn_dense_bwd.launches
+    whole = parallel.gather_params(mesh, model)
+    if mesh.is_main:
+        out["params"] = numpy_named(whole)
+    if not spec["timed"]:
+        return out
+    out["timing"] = timed_steps(lambda: step(model, opt_state, shard),
+                                steps=4, profiled=2)
+    reset_launches()
+    whole = parallel.gather_params(mesh, model)
+    val = read_data(spec["prepro"], "val", cfg).make_batch(
+        list(range(cfg.batch_size)))[0]
+    parallel.make_sharded_eval_step(cfg, mesh)(
+        whole, parallel.shard_batch(mesh, val))
+    torch.cuda.synchronize()
+    out["K1"] = decode_step_gathered.launches
+    return out
+
+
+def tp_train_cli_rank(mesh, argv: list) -> dict:
+    """``mvt-torch-train``'s rank worker, recording the whole weights
+    each save gathers; returns its summary and, on rank 0, the last
+    gathered weights."""
+    gathered = []
+
+    def gather(m, model):
+        whole = parallel.gather_params(m, model)
+        gathered.append(whole)
+        return whole
+
+    args = train_cli.build_parser().parse_args(argv)
+    with mock.patch.object(train_cli, "gather_params", gather):
+        summary = train_cli.train_worker(mesh, args)
+    if mesh.is_main:
+        summary["params"] = numpy_named(gathered[-1])
+    summary.update(rank=mesh.rank, K4=gnn_dense_fwd.launches,
+                   K5=gnn_dense_bwd.launches,
+                   K1=decode_step_gathered.launches)
+    return summary
+
+
+def tp_gap(what: str, got: dict, want: dict, before: dict) -> float:
+    """The worst relative L2 of ``got`` against ``want`` over the
+    parameters and of the update from ``before``; fails above
+    DP_UPDATE_RTOL, or where the update check cannot tell a step from
+    none."""
+    worst = max(float(np.linalg.norm(got[n] - w))
+                / max(float(np.linalg.norm(w)), 1e-30)
+                for n, w in want.items())
+    worst_update = update_gap(before, got, want)
+    unchanged = update_gap(before, before, want)
+    by_leaf = sorted(((update_gap(before, got, {n: w}), n)
+                      for n, w in want.items()), reverse=True)[:3]
+    print("tensor-parallel: %s: worst relative L2 of the whole parameters "
+          "%.3g, of the update %.3g (gate %.0e; unchanged parameters would "
+          "read %.3g; the update's worst leaves %s)"
+          % (what, worst, worst_update, DP_UPDATE_RTOL, unchanged,
+             ", ".join("%s %.3g" % (n, g) for g, n in by_leaf)))
+    if not (worst <= DP_UPDATE_RTOL and worst_update <= DP_UPDATE_RTOL
+            and unchanged > DP_UPDATE_RTOL):
+        raise AssertionError(f"tensor-parallel: {what}: the update "
+                             f"disagrees with the single-process one")
+    return worst
+
+
+def tensor_parallel_phase(dev, tmp: str, card: str) -> dict:
+    """Phase 11 (see the module docstring). Returns the launches of K1,
+    K4 and K5 on its paths (every rank's)."""
+    cfg = train_config()
+    prepro = synthesize_prepro(os.path.join(tmp, "tp_prepro"), cfg,
+                               n_train=TP_EXAMPLES, n_val=cfg.batch_size,
+                               seed=11)
+    # mvt-torch-test reads a test split: the val examples
+    shutil.copy(os.path.join(prepro, "data_val.npz"),
+                os.path.join(prepro, "data_test.npz"))
+    ckpt = list_steps(os.path.join(tmp, "out", "multiverse", "00",
+                                   "save"))[-1][1]
+    spec = {"prepro": prepro, "ckpt": ckpt, "steps": TP_STEPS,
+            "timed": True}
+    launches = {"K1": 0, "K4": 0, "K5": 0}
+
+    # the single process: the same weights, batch and steps
+    model = load_checkpoint(ckpt, Multiverse.init(cfg)).to(dev) \
+        .requires_grad_(True)
+    batch = batch_to_device(dp_train_batch(prepro, cfg), dev)
+    tx = trainer.build_optimizer(cfg, TP_EXAMPLES)
+    opt_state = tx.init(dict(model.named_parameters()))
+    single_bytes = tp_state_bytes(model, opt_state)
+    before = numpy_named(model)
+    step = trainer.make_train_step(cfg, tx)
+    single_losses, after = [], []
+    for _ in range(TP_STEPS):
+        single_losses.append(float(step(model, opt_state, batch)["total"]))
+        after.append(numpy_named(model))
+    single = timed_steps(lambda: step(model, opt_state, batch))
+    del model, opt_state
+
+    # (a)-(d): dp 1 x mp 2 on cuda:0
+    t0 = time.perf_counter()
+    mesh = parallel.make_mesh(devices=["cuda:0"] * TP_MP,
+                              model_parallel=TP_MP)
+    ranks = parallel.launch(tp_rank, mesh, spec, timeout=400)
+    wall = time.perf_counter() - t0
+    main = ranks[0]
+    for r in ranks:
+        for k in launches:
+            launches[k] += r[k]
+        if (r["K4"], r["K5"], r["K1"]) != (TP_STEPS * cfg.pred_len,
+                                           TP_STEPS * cfg.pred_len,
+                                           cfg.pred_len):
+            raise AssertionError(
+                "tensor-parallel: rank %d ran K4/K5 %d/%d times in %d "
+                "steps (expected %d each) and K1 %d times in one eval "
+                "(expected %d)" % (r["rank"], r["K4"], r["K5"], TP_STEPS,
+                                   TP_STEPS * cfg.pred_len, r["K1"],
+                                   cfg.pred_len))
+        if r["losses"] != main["losses"]:
+            raise AssertionError("tensor-parallel: the model ranks' losses "
+                                 "differ: %s" % [x["losses"] for x in ranks])
+    loss_gap = max(abs(a - b) / abs(b)
+                   for a, b in zip(main["losses"], single_losses))
+    print("tensor-parallel: %d gloo ranks on cuda:0 at dp 1 x mp %d, %.1f s "
+          "(%s); %d steps on one batch of %d from the trained step: losses "
+          "%s vs the single process's %s (worst relative gap %.3g, gate "
+          "%.0e); K4/K5 launches by rank %s, eval K1 by rank %s"
+          % (TP_MP, TP_MP, wall, card, TP_STEPS, cfg.batch_size,
+             [round(x, 5) for x in main["losses"]],
+             [round(x, 5) for x in single_losses], loss_gap, DP_UPDATE_RTOL,
+             [(r["K4"], r["K5"]) for r in ranks], [r["K1"] for r in ranks]))
+    if not loss_gap <= DP_UPDATE_RTOL:
+        raise AssertionError("tensor-parallel: the losses disagree with the "
+                             "single process's")
+    tp_gap("dp 1 x mp 2, %d steps, vs the single process" % TP_STEPS,
+           main["params"], after[-1], before)
+    print("tensor-parallel: weights + optimizer slots by rank %s bytes, the "
+          "single process %d bytes (%s of it a rank); %d of %d leaves "
+          "sharded (%s)"
+          % ([r["state_bytes"] for r in ranks], single_bytes,
+             ["%.4f" % (r["state_bytes"] / single_bytes) for r in ranks],
+             main["sharded"], main["leaves"], card))
+    busy = [r["timing"]["busy_ms"] for r in ranks]
+    window = main["timing"]["window_ms"]
+    print("tensor-parallel: dp 1 x mp 2 on one card (%s; two ranks "
+          "time-share it: not a scaling figure): %.2f steps/s, device busy "
+          "a step %s ms by rank, window %.2f ms a step, card idle share "
+          "%.4f; the single process %.2f steps/s, busy %.2f ms, idle %.4f; "
+          "model-group all-reduces a step %d moving %d bytes (%.2f MB)"
+          % (card, main["timing"]["steps_s"], [round(b, 3) for b in busy],
+             window, 1 - sum(busy) / window, single["steps_s"],
+             single["busy_ms"],
+             1 - single["busy_ms"] / single["window_ms"],
+             main["step_collectives"], main["step_bytes"],
+             main["step_bytes"] / 1e6))
+
+    # the data 2 x model 2 grid, four ranks on the card: one step
+    spec4 = dict(spec, steps=1, timed=False)
+    t0 = time.perf_counter()
+    grid = parallel.launch(tp_rank, parallel.make_mesh(
+        devices=["cuda:0"] * 4, model_parallel=TP_MP), spec4, timeout=400)
+    for r in grid:
+        launches["K4"] += r["K4"]
+        launches["K5"] += r["K5"]
+        if (r["K4"], r["K5"]) != (cfg.pred_len, cfg.pred_len):
+            raise AssertionError("tensor-parallel: dp 2 x mp 2 rank %d ran "
+                                 "K4/K5 %d/%d times in one step"
+                                 % (r["rank"], r["K4"], r["K5"]))
+    print("tensor-parallel: dp 2 x mp 2, four gloo ranks on cuda:0, one "
+          "step in %.1f s; loss %.5f vs %.5f; K4/K5 by rank %s"
+          % (time.perf_counter() - t0, grid[0]["losses"][0],
+             single_losses[0], [(r["K4"], r["K5"]) for r in grid]))
+    tp_gap("dp 2 x mp 2, one step, vs the single process",
+           grid[0]["params"], after[0], before)
+
+    # (e) mvt-torch-train --model_parallel 2 from the same step over the
+    # same 20 examples (one batch an epoch), then mvt-torch-test
+    out = os.path.join(tmp, "out_tp")
+    flags = list(TRAIN_FLAGS)
+    flags[flags.index("--num_epochs") + 1] = str(TP_STEPS)
+    flags[flags.index("--save_period") + 1] = str(TP_STEPS)
+    argv = [prepro, out, "tp", *flags, "--model_parallel", str(TP_MP),
+            "--load_from", ckpt]
+    t0 = time.perf_counter()
+    runs = parallel.launch(tp_train_cli_rank, mesh, argv, timeout=400)
+    wall = time.perf_counter() - t0
+    for r in runs:
+        launches["K4"] += r["K4"]
+        launches["K5"] += r["K5"]
+        launches["K1"] += r["K1"]
+        if r["steps"] != TP_STEPS or r["world"] != TP_MP or not r["K4"]:
+            raise AssertionError(f"tensor-parallel: mvt-torch-train rank "
+                                 f"{r['rank']}: {r['steps']} steps at world "
+                                 f"{r['world']}, K4 {r['K4']}")
+    saved = list_steps(os.path.join(out, "tp", "00", "save"))
+    reset_launches()
+    perf = test_cli.main([prepro, out, "tp", *TP_TEST_FLAGS])
+    torch.cuda.synchronize()
+    launches["K1"] += decode_step_gathered.launches
+    loaded = numpy_named(load_checkpoint(saved[-1][1], Multiverse.init(cfg)))
+    exact = all(np.array_equal(loaded[n], v)
+                for n, v in runs[0]["params"].items())
+    print("tensor-parallel: mvt-torch-train --model_parallel %d: %d steps "
+          "and evals in %.1f s, steps saved %s, K4/K5/K1 by rank %s; the "
+          "saved step equals the weights it gathered: %s; mvt-torch-test "
+          "in one process on it: %s=%.4f, K1 %d"
+          % (TP_MP, TP_STEPS, wall, [s for s, _ in saved],
+             [(r["K4"], r["K5"], r["K1"]) for r in runs], exact,
+             "grid0_traj_ade", perf["grid0_traj_ade"],
+             decode_step_gathered.launches))
+    if saved[-1][0] != TP_STEPS or not exact:
+        raise AssertionError("tensor-parallel: mvt-torch-train's saved step "
+                             "is not the whole weights it gathered")
+    tp_gap("mvt-torch-train --model_parallel 2's saved step vs (a)'s "
+           "gathered weights", loaded, main["params"], before)
     return launches
 
 
@@ -3044,6 +3338,10 @@ def main() -> int:
                                        trained["throughput"]).items():
             launches[k] += n
         elapsed("multi-device phase")
+        for k, n in tensor_parallel_phase(dev, tmp,
+                                          smi.stdout.strip()).items():
+            launches[k] += n
+        elapsed("tensor-parallel phase")
     simaug_run = simaug_phase(model, dev)
     for k in ("K1", "K4", "K5"):
         launches[k] += simaug_run[k]

@@ -8,14 +8,18 @@ and ``val_perf.json``. Differences:
 
 * the step runs data-parallel over every visible GPU with no flag, as
   ``mvt-train`` does over every chip: one process a GPU
-  (``multiverse_torch/parallel``), the world the largest divisor of
+  (``multiverse_torch/parallel``), the data axis the largest divisor of
   ``--batch_size`` that fits them, ``CUDA_VISIBLE_DEVICES`` limiting
-  them; tensor parallelism (``--model_parallel`` other than 1) is
-  refused;
+  them; ``--model_parallel N`` splits the weights and optimizer slots
+  of each data index over N GPUs (tensor parallelism,
+  ``parallel/tensor.py``), and fewer than N visible GPUs is an error;
 * ``--device`` picks the device (default cuda, every visible GPU;
   ``cuda:N`` one GPU; there is no CPU fallback, ``--device cpu`` runs
-  one process with the plain PyTorch versions of the kernels);
+  one process with the plain PyTorch versions of the kernels, or
+  ``--model_parallel`` gloo ranks on the host, the counterpart of the
+  JAX package's virtual CPU devices);
 * checkpoints are the port's npz files (``train/checkpoints.py``),
+  the whole weights however the ranks split them,
   which ``mvt-torch-test``, ``mvt-torch-serve`` and
   ``mvt-torch-multifuture-inference`` read from the run directory or as
   a file; ``--load``/``--load_best``/``--load_from`` read them and the
@@ -52,6 +56,7 @@ from multiverse_torch.data.prefetch import prefetch
 from multiverse_torch.models import Multiverse
 from multiverse_torch.parallel import (
     Mesh,
+    gather_params,
     init_sharded_train_state,
     launch,
     make_mesh,
@@ -101,7 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--profile", default=None,
                         help="directory for a torch.profiler trace")
     parser.add_argument("--model_parallel", type=int, default=1,
-                        help="only 1: the port trains data-parallel only")
+                        help="ranks (GPUs) each weight is split over "
+                             "(tensor parallelism); 1 = data-parallel only")
     parser.add_argument("--per_scene_eval", action="store_true")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
@@ -119,29 +125,36 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def train_mesh(device: torch.device, batch_size: int) -> Mesh:
-    """Data parallelism over every visible GPU for ``--device cuda``
-    (the largest divisor of the batch size that fits them; one process
-    a GPU), or the one device of ``--device cpu`` / ``cuda:N``."""
+def train_mesh(device: torch.device, batch_size: int,
+               model_parallel: int = 1) -> Mesh:
+    """For ``--device cuda``, every visible GPU: ``model_parallel`` of
+    them a data index, the data axis the largest divisor of the batch
+    size that fits the rest (one process a GPU); for ``--device cpu``,
+    ``model_parallel`` ranks on the host; else the one device of
+    ``cuda:N``. Raises ``ValueError`` where the devices do not fit
+    ``model_parallel``."""
     if device.type == "cuda" and device.index is None:
-        return make_mesh_for_batch(batch_size)
-    return make_mesh(devices=[device])
+        return make_mesh_for_batch(batch_size, model_parallel)
+    if device.type == "cpu":
+        return make_mesh(devices=[device] * model_parallel,
+                         model_parallel=model_parallel)
+    return make_mesh(devices=[device], model_parallel=model_parallel)
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.model_parallel != 1:
-        sys.exit("%s: --model_parallel %d: tensor parallelism is not "
-                 "ported (the port trains data-parallel only)"
-                 % (PROG, args.model_parallel))
     device = resolve_device(args.device)
     if args.check_model:
         cfg = config_from_args(args)
         for name, p in Multiverse.init(cfg).named_parameters():
             print("%s %s" % (name.replace(".", "/"), tuple(p.shape)))
         return {}
-    return launch(train_worker, train_mesh(device, args.batch_size),
-                  args)[0]
+    try:
+        mesh = train_mesh(device, args.batch_size, args.model_parallel)
+    except ValueError as exc:
+        sys.exit("%s: --model_parallel %d: %s"
+                 % (PROG, args.model_parallel, exc))
+    return launch(train_worker, mesh, args)[0]
 
 
 def _quiet(*_args, **_kw) -> None:
@@ -150,11 +163,13 @@ def _quiet(*_args, **_kw) -> None:
 
 def train_worker(mesh: Mesh, args: argparse.Namespace) -> dict:
     """One rank of ``mvt-torch-train``: every rank iterates the same
-    seeded global batch stream and trains on its block of each batch
-    (the same examples in each step, and the gathered eval outputs in
-    order, at any world size); rank 0 alone prints the step lines and
-    writes the run directory. Returns the rank's step count, world size,
-    collective calls and best validation point."""
+    seeded global batch stream and trains on its data index's block of
+    each batch (the same examples in each step, and the gathered eval
+    outputs in order, at any world size) with its block of the weights;
+    at each save every rank gathers the whole weights, which rank 0
+    alone writes (it alone prints the step lines and writes the run
+    directory) and every rank evaluates. Returns the rank's step count,
+    world size, collective calls and best validation point."""
     # full f32 products, as the JAX package's Precision.HIGHEST
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -193,10 +208,15 @@ def train_worker(mesh: Mesh, args: argparse.Namespace) -> dict:
     train_step = make_sharded_train_step(cfg, tx, mesh)
     eval_step = make_sharded_eval_step(cfg, mesh)
 
-    def eval_fn(batch):
-        cl, rg = eval_step(model, shard_batch(mesh, batch))
-        return ({i: v.cpu().numpy() for i, v in cl.items()},
-                {i: v.cpu().numpy() for i, v in rg.items()})
+    def evaluate_whole(whole):
+        """The val split's metrics on the whole weights."""
+        def eval_fn(batch):
+            cl, rg = eval_step(whole, shard_batch(mesh, batch))
+            return ({i: v.cpu().numpy() for i, v in cl.items()},
+                    {i: v.cpu().numpy() for i, v in rg.items()})
+
+        return evaluate(val_data, cfg, eval_fn,
+                        per_scene_eval=args.per_scene_eval)
 
     steps_per_epoch = int(math.ceil(train_data.num_examples / cfg.batch_size))
     num_steps = steps_per_epoch * cfg.num_epochs
@@ -220,8 +240,7 @@ def train_worker(mesh: Mesh, args: argparse.Namespace) -> dict:
         if loaded is not None:
             # the loaded model's validation baseline, so best tracking
             # never ends worse than the starting checkpoint
-            evalperf = evaluate(val_data, cfg, eval_fn,
-                                per_scene_eval=args.per_scene_eval)
+            evalperf = evaluate_whole(gather_params(mesh, model))
             best[metric] = evalperf[metric]
             best["step"] = step_offset
             val_perf.append((None, evalperf, step_offset, False))
@@ -249,12 +268,13 @@ def train_worker(mesh: Mesh, args: argparse.Namespace) -> dict:
                     steps_per_sec = (global_step - sync_step) / max(
                         now - sync_t, 1e-9)
                     sync_t, sync_step = now, global_step
+                    whole = gather_params(mesh, model)
                     if mesh.is_main:
-                        ckpt.save(global_step + step_offset, model)
-                    # every rank evaluates its shard and gets every
-                    # rank's outputs: the same metrics, the same best
-                    evalperf = evaluate(val_data, cfg, eval_fn,
-                                        per_scene_eval=args.per_scene_eval)
+                        ckpt.save(global_step + step_offset, whole)
+                    # every rank evaluates its data index's shard and
+                    # gets every one's outputs: the same metrics, the
+                    # same best
+                    evalperf = evaluate_whole(whole)
                     log("step %d: loss(ma)=%s wd(ma)=%s %.1f steps/s "
                         "| val: %s (best %s=%.4f @%d)" % (
                             global_step, loss_ma, wd_ma, steps_per_sec,
@@ -266,7 +286,7 @@ def train_worker(mesh: Mesh, args: argparse.Namespace) -> dict:
                         best[metric] = evalperf[metric]
                         best["step"] = global_step + step_offset
                         if mesh.is_main:
-                            ckpt.save(global_step + step_offset, model,
+                            ckpt.save(global_step + step_offset, whole,
                                       best=True)
                     # every eval point is recorded: val_perf.json holds
                     # the whole curve

@@ -11,7 +11,11 @@ As in ``mvt-torch-train``:
 
 * ``--device`` picks the device (default cuda; no CPU fallback,
   ``--device cpu`` runs the plain PyTorch versions of the kernels);
-* one device: ``--model_parallel`` other than 1 is refused;
+* the train step runs on one device and ``--model_parallel`` other
+  than 1 is refused; the periodic eval runs over every visible GPU, as
+  the JAX trainer's does over every chip (``make_mesh_for_batch`` and
+  ``make_sharded_eval_step``): rank 0 trains, and at each eval sends
+  the weights to the other ranks, which wait for them between evals;
 * checkpoints are the port's npz files (``train/checkpoints.py``);
   ``--load``/``--load_best``/``--load_from`` read them and the JAX
   package's orbax steps alike, and new saves continue above a JAX run
@@ -41,7 +45,7 @@ from multiverse_torch.cli.common import (
     add_train_args,
     config_from_args,
 )
-from multiverse_torch.cli.train import resolve_device
+from multiverse_torch.cli.train import resolve_device, train_mesh
 from multiverse_torch.config import MultiverseConfig
 from multiverse_torch.data.dataset import batch_to_device, read_data
 from multiverse_torch.data.multiview import MultiviewDataset
@@ -51,16 +55,28 @@ from multiverse_torch.models.simaug import (
     SimAugConfig,
     make_simaug_train_step,
 )
+from multiverse_torch.parallel import (
+    Mesh,
+    broadcast_params,
+    launch,
+    make_sharded_eval_step,
+    shard_batch,
+)
 from multiverse_torch.train.checkpoints import (
     CheckpointManager,
     load_checkpoint,
     process_out_dirs,
 )
 from multiverse_torch.train.evaluate import evaluate
-from multiverse_torch.train.trainer import build_optimizer, make_eval_step
+from multiverse_torch.train.trainer import build_optimizer
 from multiverse_torch.utils import MovingAverage
 
 PROG = "mvt-torch-train-simaug"
+
+# rank 0 to the eval ranks: evaluate the weights that follow, or end
+_CMD_STOP, _CMD_EVAL = 0, 1
+# the eval ranks wait in a broadcast while rank 0 trains between evals
+EVAL_WAIT_S = 7 * 24 * 3600.0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -87,7 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "(see mvt-torch-train)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--model_parallel", type=int, default=1,
-                        help="only 1: the port trains on one device")
+                        help="only 1: SimAug trains on one device")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     add_model_args(parser)
@@ -140,22 +156,92 @@ def simaug_config_from_args(args: argparse.Namespace) -> SimAugConfig:
     ).validate()
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     if args.model_parallel != 1:
-        sys.exit("%s: --model_parallel %d: the port trains on one device "
-                 "(tensor parallelism is not ported)"
-                 % (PROG, args.model_parallel))
+        sys.exit("%s: --model_parallel %d: SimAug trains on one device, "
+                 "as mvt-train-simaug does (mvt-torch-train splits the "
+                 "weights)" % (PROG, args.model_parallel))
     device = resolve_device(args.device)
+    mesh = dataclasses.replace(train_mesh(device, args.batch_size),
+                               timeout_s=EVAL_WAIT_S)
+    return launch(simaug_worker, mesh, args)[0]
+
+
+class ShardedEval:
+    """The val split's metrics over every rank of ``mesh``: rank 0's
+    weights sent to every rank, each rank's block of each val batch
+    decoded (``make_sharded_eval_step``), the outputs gathered on
+    every rank. Rank 0 calls :meth:`evaluate` at each eval and
+    :meth:`stop` at the end; the other ranks :meth:`serve` until then."""
+
+    def __init__(self, mesh: Mesh, cfg, val_data, only_scene):
+        self.mesh, self.cfg, self.val_data = mesh, cfg, val_data
+        self.only_scene = only_scene
+        self.step = make_sharded_eval_step(cfg, mesh)
+
+    def _command(self, cmd: int = -1) -> int:
+        """Rank 0's ``cmd``, on every rank."""
+        return int(self.mesh.broadcast(torch.tensor(
+            [cmd], dtype=torch.int64, device=self.mesh.device)).item())
+
+    def _metrics(self, model) -> dict:
+        broadcast_params(self.mesh, model)
+
+        def eval_fn(batch):
+            cl, rg = self.step(model, shard_batch(self.mesh, batch))
+            return ({i: v.cpu().numpy() for i, v in cl.items()},
+                    {i: v.cpu().numpy() for i, v in rg.items()})
+
+        return evaluate(self.val_data, self.cfg, eval_fn,
+                        only_scene=self.only_scene)
+
+    def evaluate(self, model) -> dict:
+        self._command(_CMD_EVAL)
+        return self._metrics(model)
+
+    def stop(self) -> None:
+        self._command(_CMD_STOP)
+
+    def serve(self, model) -> int:
+        """An eval rank: evaluate into ``model`` until rank 0 stops;
+        returns the evals made."""
+        evals = 0
+        while self._command() == _CMD_EVAL:
+            self._metrics(model)
+            evals += 1
+        return evals
+
+
+def simaug_worker(mesh: Mesh, args: argparse.Namespace) -> dict:
+    """One rank of ``mvt-torch-train-simaug``: rank 0 trains on its
+    device and writes the run directory; every rank takes part in the
+    periodic eval (:class:`ShardedEval`). Returns the rank's world size,
+    evals and, on rank 0, the steps, the best validation point and every
+    eval's metrics."""
     # full f32 products, as the JAX package's Precision.HIGHEST
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    device = mesh.device
     cfg = simaug_config_from_args(args)
+    val_data = read_data(args.prepropath, "val", cfg)
+    sharded_eval = ShardedEval(mesh, cfg, val_data, args.only_scene)
+    if not mesh.is_main:
+        model = Multiverse.init(cfg, device=device)
+        return {"world": mesh.world, "evals": sharded_eval.serve(model)}
+    # a failure is not sent on: the launch stops the eval ranks
+    result = train(mesh, args, cfg, val_data, sharded_eval)
+    sharded_eval.stop()
+    return result
 
+
+def train(mesh: Mesh, args: argparse.Namespace, cfg: SimAugConfig,
+          val_data, sharded_eval: ShardedEval) -> dict:
+    """Rank 0's training loop (see :func:`simaug_worker`)."""
+    device = mesh.device
     train_base = read_data(args.prepropath, "train", cfg)
     train_data = MultiviewDataset(
         train_base, cfg, max_views=cfg.multiview_max_num)
-    val_data = read_data(args.prepropath, "val", cfg)
     if cfg.multiview_train and train_data.num_views != cfg.multiview_max_num:
         cfg = cfg.replace(
             multiview_max_num=train_data.num_views).validate()
@@ -182,12 +268,6 @@ def main(argv=None) -> None:
     tx = build_optimizer(cfg, train_data.num_examples)
     opt_state = tx.init(dict(model.named_parameters()))
     train_step = make_simaug_train_step(cfg, tx)
-    eval_step = make_eval_step(cfg)
-
-    def eval_fn(batch):
-        cl, rg = eval_step(model, batch_to_device(batch, device))
-        return ({i: v.cpu().numpy() for i, v in cl.items()},
-                {i: v.cpu().numpy() for i, v in rg.items()})
 
     steps_per_epoch = int(
         math.ceil(train_data.num_examples / cfg.batch_size))
@@ -197,12 +277,15 @@ def main(argv=None) -> None:
     loss_ma = MovingAverage(args.loss_moving_avg_step)
     global_step = 0
     finalperf = None
+    evals = []
 
-    print("SimAug training: %d steps, views=%d, mode=%s, device=%s" % (
-        num_steps, train_data.num_views,
-        "adv" if cfg.adv_train else
-        "multiview" if cfg.multiview_train else
-        "standard_aug" if cfg.standard_aug else "clean", device))
+    print("SimAug training: %d steps, views=%d, mode=%s, device=%s, "
+          "eval mesh=%s" % (
+              num_steps, train_data.num_views,
+              "adv" if cfg.adv_train else
+              "multiview" if cfg.multiview_train else
+              "standard_aug" if cfg.standard_aug else "clean", device,
+              mesh.shape))
 
     loss_buf = LossBuffer(loss_ma, args.loss_fetch_period)
     # steps/s flush to flush: the flush's copy to the host is the sync
@@ -226,8 +309,8 @@ def main(argv=None) -> None:
                     now - sync_t, 1e-9)
                 sync_t, sync_step = now, global_step
                 ckpt.save(global_step + step_offset, model)
-                evalperf = evaluate(val_data, cfg, eval_fn,
-                                    only_scene=args.only_scene)
+                evalperf = sharded_eval.evaluate(model)
+                evals.append(evalperf)
                 print("step %d: loss(ma)=%s %.2f steps/s | val %s=%.4f "
                       "(best %.4f @%d)" % (
                           global_step, loss_ma, steps_per_sec,
@@ -248,6 +331,8 @@ def main(argv=None) -> None:
     if finalperf is not None:
         print("best val %s: %.4f at step %d" % (
             metric, best[metric], best["step"]))
+    return {"world": mesh.world, "steps": global_step, "best": best,
+            "evals": evals}
 
 
 if __name__ == "__main__":

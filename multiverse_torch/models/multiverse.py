@@ -215,7 +215,7 @@ def greedy_decode(
                                     first_input, init_state, T_pred,
                                     scene_mean)
     N, h, w, _ = first_input.shape
-    emb_shape = (N, h, w, emb_p["w"].shape[-1])
+    emb_shape = (N, h, w, cfg.emb_size)
 
     def step(t, x, c, hh, keep):
         state = ConvLSTMState(c=c, h=hh)
@@ -477,13 +477,14 @@ def compute_loss(
 
     ``mesh``: the ``multiverse_torch.parallel.Mesh`` of a data-parallel
     step (the JAX ``axis_name``) whose caller averages the losses and
-    gradients over its ranks' equal shards. Every plain mean is exact
-    under that average, but the masked regression's normaliser, the
-    shard's mask count, is not: in a mesh's group the count is summed
-    over the ranks and the local term scaled by the world size, so the
-    average is
+    gradients over its data ranks' equal shards. Every plain mean is
+    exact under that average, but the masked regression's normaliser,
+    the shard's mask count, is not: in a mesh's data group the count is
+    summed over the data ranks and the local term scaled by their number,
+    so the average is
     ``sum_ranks(num) / (2 * global count)`` in value and in gradient
-    (the count does not depend on the parameters)."""
+    (the count does not depend on the parameters). The model ranks of a
+    tensor-parallel mesh hold the same examples and are not counted."""
     losses: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), dtype=torch.float32,
                         device=batch.obs_grid_class.device)
@@ -514,9 +515,9 @@ def compute_loss(
             m = (label_mask > 0).float().reshape(reg.shape[:-1])[..., None]
             num, den = torch.sum(hub * m), torch.sum(m).detach()
             scale = 1.0
-            if mesh is not None and mesh.group is not None:
+            if mesh is not None and mesh.data_group is not None:
                 den = mesh.all_reduce_sum(den.clone())
-                scale = float(mesh.world)
+                scale = float(mesh.dp)
             reg_loss = scale * num / torch.clamp_min(den * 2.0, 1.0)
         else:
             reg_loss = torch.mean(hub)

@@ -20,10 +20,9 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from multiverse_torch.ops.layers import Params, same_padding
+from multiverse_torch.ops.layers import Params, conv_nhwc
 
 
 def dropout_mask(generator: torch.Generator, shape, keep_prob: float,
@@ -76,16 +75,21 @@ def convlstm_step(
     forget_bias: float = 1.0,
     compute_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, ConvLSTMState]:
-    """One cell step. x: [N, H, W, Cin]; state c/h: [N, H, W, D]."""
+    """One cell step. x: [N, H, W, Cin]; state c/h: [N, H, W, D].
+
+    A kernel that is a tensor-parallel block (it carries a ``shard``,
+    ``multiverse_torch.parallel.tensor``) holds D/mp hidden channels of
+    each gate: the step computes those gates from the whole x and h,
+    updates its block of c (which stays the rank's own, [N, H, W, D/mp])
+    and gathers h' from the model ranks."""
     c, h = state
     dtype = compute_dtype or torch.float32
-    kernel = params["kernel"]
-    xin = torch.cat([x, h], dim=-1).to(dtype).permute(0, 3, 1, 2)
-    k = kernel.shape[0]
-    pad = same_padding(xin.shape[2], k, 1) + same_padding(xin.shape[3], k, 1)
-    xin = F.pad(xin, (pad[2], pad[3], pad[0], pad[1]))
-    gates = F.conv2d(xin, kernel.to(dtype).permute(3, 2, 0, 1))
-    gates = gates.permute(0, 2, 3, 1) + params["bias"].to(dtype)
+    shard = getattr(params["kernel"], "shard", None)
+    xin = torch.cat([x, h], dim=-1)
+    if shard is not None:
+        xin = shard.copy(xin)
+    gates = conv_nhwc(params["kernel"], xin, 1, dtype) \
+        + params["bias"].to(dtype)
     i, g, f, o = torch.chunk(gates, 4, dim=-1)
     new_c = (torch.sigmoid(f + forget_bias) * c
              + torch.sigmoid(i) * torch.tanh(g))
@@ -93,6 +97,8 @@ def convlstm_step(
     if compute_dtype is not None:
         new_c = new_c.to(compute_dtype)
         new_h = new_h.to(compute_dtype)
+    if shard is not None:
+        new_h = shard.gather(new_h)
     return new_h, ConvLSTMState(c=new_c, h=new_h)
 
 
@@ -118,9 +124,14 @@ def convlstm_scan(
     mask. Returns (outputs [N, T, H, W, D], final state)."""
     dropout = keep_prob < 1.0 and dropout_rng is not None
     N, T, H, W = xs.shape[:4]
-    D = params["kernel"].shape[-1] // 4
-    zeros = torch.zeros((N, H, W, D), dtype=compute_dtype or torch.float32,
-                        device=xs.device)
+    kernel = params["kernel"]
+    dtype = compute_dtype or torch.float32
+    # c is as wide as the kernel's gates (a tensor-parallel block's own
+    # channels), h as its recurrent input
+    c = torch.zeros((N, H, W, kernel.shape[-1] // 4), dtype=dtype,
+                    device=xs.device)
+    h = torch.zeros((N, H, W, kernel.shape[2] - xs.shape[-1]), dtype=dtype,
+                    device=xs.device)
 
     def step(t, x_t, c, h):
         out, new_state = convlstm_step(params, x_t, ConvLSTMState(c=c, h=h),
@@ -134,7 +145,6 @@ def convlstm_scan(
                 h=torch.where(active, new_state.h, h))
         return out, new_state.c, new_state.h
 
-    c, h = zeros, zeros
     outs = []
     for t in range(T):
         x_t = xs[:, t]

@@ -59,6 +59,19 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple:
     return total // 2, total - total // 2
 
 
+def conv_nhwc(w: torch.Tensor, x: torch.Tensor, stride: int,
+              dtype: torch.dtype) -> torch.Tensor:
+    """The SAME-padded NHWC conv of ``x`` with the HWIO kernel ``w``,
+    both cast to ``dtype``, no bias; the output in ``dtype``."""
+    kh, kw = w.shape[0], w.shape[1]
+    xt = x.to(dtype).permute(0, 3, 1, 2)
+    pad_h = same_padding(xt.shape[2], kh, stride)
+    pad_w = same_padding(xt.shape[3], kw, stride)
+    xt = F.pad(xt, (*pad_w, *pad_h))
+    out = F.conv2d(xt, w.to(dtype).permute(3, 2, 0, 1), stride=stride)
+    return out.permute(0, 2, 3, 1)
+
+
 def conv2d(
     params: Params,
     x: torch.Tensor,
@@ -69,16 +82,14 @@ def conv2d(
     """SAME-padded NHWC conv with an HWIO kernel; returns f32 after the
     activation. ``compute_dtype`` casts input and weights and keeps the
     conv output, bias add and activation in that type, like the JAX
-    package's bf16 path."""
-    w = params["w"]
+    package's bf16 path. A kernel that is a tensor-parallel block (it
+    carries a ``shard``, ``multiverse_torch.parallel.tensor``) computes
+    its block with the model ranks' collectives."""
+    shard = getattr(params["w"], "shard", None)
+    if shard is not None:
+        return shard.conv2d(params, x, stride, activation, compute_dtype)
     dtype = compute_dtype or torch.float32
-    kh, kw = w.shape[0], w.shape[1]
-    xt = x.to(dtype).permute(0, 3, 1, 2)
-    pad_h = same_padding(xt.shape[2], kh, stride)
-    pad_w = same_padding(xt.shape[3], kw, stride)
-    xt = F.pad(xt, (*pad_w, *pad_h))
-    out = F.conv2d(xt, w.to(dtype).permute(3, 2, 0, 1), stride=stride)
-    out = out.permute(0, 2, 3, 1)
+    out = conv_nhwc(params["w"], x, stride, dtype)
     if "b" in params:
         out = out + params["b"].to(dtype)
     if activation is not None:
@@ -176,10 +187,18 @@ def _named_leaves(params, prefix: str = ""):
 def l2_weight_decay(params, wd: float) -> torch.Tensor:
     """0.5 * wd * sum ||w||^2 over every leaf named ``w`` (tf.nn.l2_loss
     over the reference's ``.*/W`` selection); ConvLSTM kernels are named
-    ``kernel`` and excluded, as in the reference."""
+    ``kernel`` and excluded, as in the reference. The squares of
+    tensor-parallel blocks are summed over their model ranks."""
     leaves = _named_leaves(params)
     total = torch.zeros((), dtype=torch.float32, device=leaves[0][1].device)
+    blocks, shard = torch.zeros_like(total), None
     for name, leaf in leaves:
         if name.rsplit(".", 1)[-1] == "w":
-            total = total + 0.5 * torch.sum(torch.square(leaf.float()))
+            square = 0.5 * torch.sum(torch.square(leaf.float()))
+            if getattr(leaf, "shard", None) is None:
+                total = total + square
+            else:
+                blocks, shard = blocks + square, leaf.shard
+    if shard is not None:
+        total = total + shard.reduce(blocks)
     return total * wd

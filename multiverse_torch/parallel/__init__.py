@@ -1,5 +1,5 @@
-"""Data parallelism over GPUs (``torch.distributed``, one process a
-device): the port of ``multiverse_tpu/parallel``."""
+"""Data and tensor parallelism over GPUs (``torch.distributed``, one
+process a device): the port of ``multiverse_tpu/parallel``."""
 
 from multiverse_torch.parallel.mesh import (  # noqa: F401
     Mesh,
@@ -18,4 +18,11 @@ from multiverse_torch.parallel.mesh import (  # noqa: F401
     replicate,
     shard_batch,
     sharded_loss_and_grads,
+)
+from multiverse_torch.parallel.tensor import (  # noqa: F401
+    Shard,
+    gather_params,
+    leaf_pspec,
+    param_pspecs,
+    shard_params,
 )

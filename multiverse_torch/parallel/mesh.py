@@ -1,4 +1,5 @@
-"""Data parallelism over GPUs: the port of ``multiverse_tpu/parallel/mesh.py``.
+"""Data and tensor parallelism over GPUs: the port of
+``multiverse_tpu/parallel/mesh.py``.
 
 The JAX package drives every chip from one process (``shard_map`` and
 ``psum``). The port's steps are host-bound (thousands of eager launches
@@ -9,25 +10,32 @@ between GPUs, ``gloo`` on the CPU (and for two ranks sharing one GPU,
 which NCCL refuses).
 
 * :func:`make_mesh` / :func:`make_mesh_for_batch` plan the ranks (one
-  device each) and :func:`launch` starts them: in this process and with
-  no group at world 1, else one spawned process per rank, each joined
-  to the group, with a rank's failure failing the launch;
-* :func:`shard_batch` gives rank r the r-th contiguous block of the
-  leading axis (``P("data")``'s order); the scene table stays whole on
-  every rank, because ``obs_scene`` indexes it globally;
+  device each) on a ``("data", "model")`` grid, rank r = d * mp + m as
+  JAX's reshape orders it, and :func:`launch` starts them: in this
+  process and with no group at world 1, else one spawned process per
+  rank, each joined to the world group, to its data group (the ranks of
+  its model index) and to its model group (the ranks of its data
+  index), with a rank's failure failing the launch;
+* :func:`shard_batch` gives data index d the d-th contiguous block of
+  the leading axis (``P("data")``'s order); the scene table stays whole
+  on every rank, because ``obs_scene`` indexes it globally;
 * :func:`make_sharded_train_step`: local gradients, one all-reduce of
-  all of them in one bucket divided by the world size (pmean), one of
-  the loss parts, then the same optimizer update on every rank, so the
-  parameters and optimizer slots stay replicated without a broadcast;
-  :func:`compute_loss` sums the masked regression's normaliser over the
-  ranks;
+  all of them in one bucket over the data group divided by its size
+  (pmean), one of the loss parts, then the same optimizer update on
+  every data rank; :func:`compute_loss` sums the masked regression's
+  normaliser over the data group;
+* with ``model_parallel`` > 1 (``parallel/tensor.py``) each rank holds
+  its block of every sharded leaf and the optimizer slots made from it
+  (:func:`init_sharded_train_state`), and the forward and backward
+  compute channel blocks with collectives over the model group;
 * :func:`make_sharded_eval_step` / :func:`make_sharded_beam_step`: the
-  local forward or beam decode on the rank's slice, the outputs gathered
-  in rank order on every rank.
+  whole weights (gathered once a call under tensor parallelism, JAX's
+  ``P()`` params), the local forward or beam decode on the data index's
+  slice, the outputs gathered in data order on every rank.
 
 Every rank runs the full kernel path on its slice (K4/K5 in training,
-K1/K2/K3/K7 in decoding). Tensor parallelism (``model_parallel`` > 1)
-is not ported and is refused.
+on the gathered hidden state on every model rank; K1/K2/K3/K7 in
+decoding).
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from multiverse_torch.config import MultiverseConfig
 from multiverse_torch.data.dataset import batch_to_device
 from multiverse_torch.inference import beam_forward
 from multiverse_torch.models import Batch, compute_loss, model_forward
+from multiverse_torch.parallel.tensor import gather_params, shard_params
 from multiverse_torch.train.trainer import gradients, make_eval_step
 
 # the rendezvous of :func:`launch` gives up after this; a collective
@@ -64,22 +73,46 @@ COLLECTIVE_TIMEOUT_S = 1800.0
 
 @dataclasses.dataclass
 class Mesh:
-    """The data-parallel ranks: one device a rank (``devices[r]``), and
-    in a rank's own process its ``rank`` and process ``group``. A plan
-    (from :func:`make_mesh`) has ``group`` None until :func:`launch`
-    joins it; at world 1 it stays None and every collective is a no-op.
+    """The ranks on a ``("data", "model")`` grid: one device a rank
+    (``devices[r]``), rank r at data index r // mp and model index
+    r % mp. In a rank's own process: its ``rank``, the world ``group``,
+    its ``data_group`` (the ranks of its model index, None at dp 1) and
+    its ``model_group`` (the ranks of its data index, None at mp 1). A
+    plan (from :func:`make_mesh`) has no group until :func:`launch`
+    joins it; at world 1 it keeps none and every collective is a no-op.
     ``collectives`` counts the collective calls this rank made through
-    :meth:`all_reduce_sum` and :meth:`broadcast`."""
+    :meth:`all_reduce_sum`, :meth:`model_all_reduce` and
+    :meth:`broadcast`; ``model_collectives`` and ``model_bytes`` the
+    model group's calls and the bytes of their buffers. A collective
+    that waits longer than ``timeout_s`` fails its group."""
 
     devices: Tuple[torch.device, ...]
     backend: str
+    model_parallel: int = 1
     rank: int = 0
     group: Optional[object] = None
+    data_group: Optional[object] = None
+    model_group: Optional[object] = None
     collectives: int = 0
+    model_collectives: int = 0
+    model_bytes: int = 0
+    timeout_s: float = COLLECTIVE_TIMEOUT_S
 
     @property
     def world(self) -> int:
         return len(self.devices)
+
+    @property
+    def dp(self) -> int:
+        return self.world // self.model_parallel
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model_parallel
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model_parallel
 
     @property
     def device(self) -> torch.device:
@@ -91,13 +124,23 @@ class Mesh:
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": self.world, "model": 1}
+        return {"data": self.dp, "model": self.model_parallel}
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the ranks in place (a no-op without a group)."""
-        if self.group is not None:
-            dist.all_reduce(t, group=self.group)
+        """Sum ``t`` over the data group in place (a no-op without one)."""
+        if self.data_group is not None:
+            dist.all_reduce(t, group=self.data_group)
             self.collectives += 1
+        return t
+
+    def model_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the model group in place (a no-op without
+        one)."""
+        if self.model_group is not None:
+            dist.all_reduce(t, group=self.model_group)
+            self.collectives += 1
+            self.model_collectives += 1
+            self.model_bytes += t.numel() * t.element_size()
         return t
 
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
@@ -120,10 +163,11 @@ def visible_devices(device_type: str = "cuda") -> List[torch.device]:
 def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
               devices: Optional[Sequence] = None,
               device_type: str = "cuda") -> Mesh:
-    """A mesh over ``devices`` (default: the first ``n_devices`` of the
-    visible ones of ``device_type``; all of them when None). The backend
-    is ``nccl`` for distinct GPUs and ``gloo`` otherwise; NCCL refuses
-    two ranks on one device."""
+    """A ``(len // model_parallel, model_parallel)`` mesh over
+    ``devices`` (default: the first ``n_devices`` of the visible ones of
+    ``device_type``; all of them when None). The backend is ``nccl`` for
+    distinct GPUs and ``gloo`` otherwise; NCCL refuses two ranks on one
+    device."""
     if devices is None:
         devices = visible_devices(device_type)
         if n_devices is not None:
@@ -139,39 +183,44 @@ def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
     if n % model_parallel != 0:
         raise ValueError(
             f"{n} devices not divisible by model_parallel={model_parallel}")
-    if model_parallel != 1:
-        raise ValueError(
-            f"model_parallel={model_parallel}: tensor parallelism is not "
-            "ported (the port is data-parallel only)")
     distinct_gpus = (all(d.type == "cuda" for d in devices)
                      and len(set(devices)) == n)
-    return Mesh(devices=devices,
+    return Mesh(devices=devices, model_parallel=model_parallel,
                 backend="nccl" if distinct_gpus else "gloo")
 
 
-def make_mesh_for_batch(batch_size: int,
+def make_mesh_for_batch(batch_size: int, model_parallel: int = 1,
                         devices: Optional[Sequence] = None) -> Mesh:
-    """A mesh whose world is the largest divisor of ``batch_size`` that
-    fits the visible GPUs (or ``devices``): small batches use fewer
-    devices instead of failing on divisibility."""
+    """A mesh whose data axis is the largest divisor of ``batch_size``
+    that fits the visible GPUs (or ``devices``) divided by
+    ``model_parallel``: small batches use fewer devices instead of
+    failing on divisibility. Fewer devices than ``model_parallel`` is a
+    ``ValueError``, as in the JAX package."""
     if devices is None:
         devices = visible_devices()
-    dp = max(d for d in range(1, len(devices) + 1) if batch_size % d == 0)
-    return make_mesh(devices=list(devices)[:dp])
+    avail = len(devices) // model_parallel
+    if avail == 0:
+        raise ValueError(
+            f"model_parallel={model_parallel} needs {model_parallel} "
+            f"devices, found {len(devices)}")
+    dp = max(d for d in range(1, avail + 1) if batch_size % d == 0)
+    return make_mesh(devices=list(devices)[:dp * model_parallel],
+                     model_parallel=model_parallel)
 
 
 # ------------------------------------------------------------ placement
 
 
 def shard_batch(mesh: Mesh, batch) -> Batch:
-    """This rank's block of a host (numpy) Batch on its device: the r-th
-    contiguous block of every leading axis, the scene table whole."""
+    """This rank's block of a host (numpy) Batch on its device: the d-th
+    contiguous block of every leading axis at data index d (the model
+    ranks of one data index hold the same), the scene table whole."""
     n = len(batch.obs_grid_class)
-    if n % mesh.world != 0:
+    if n % mesh.dp != 0:
         raise ValueError(f"batch of {n} not divisible by the mesh data "
-                         f"axis ({mesh.world})")
-    b = n // mesh.world
-    lo, hi = mesh.rank * b, (mesh.rank + 1) * b
+                         f"axis ({mesh.dp})")
+    b = n // mesh.dp
+    lo, hi = mesh.data_index * b, (mesh.data_index + 1) * b
 
     def block(name, a):
         if a is None or name == "scene_feat":
@@ -197,26 +246,26 @@ def _unflat_into(flat: torch.Tensor, tensors: Sequence[torch.Tensor]):
 
 
 def all_reduce_mean(mesh: Mesh, tensors: Sequence[torch.Tensor]) -> None:
-    """pmean, in place, of tensors of one dtype: one all-reduce of one
-    flattened bucket, divided by the world size."""
-    if mesh.group is None or not tensors:
+    """pmean over the data group, in place, of tensors of one dtype: one
+    all-reduce of one flattened bucket, divided by the group's size."""
+    if mesh.data_group is None or not tensors:
         return
     flat = mesh.all_reduce_sum(_flat(tensors))
-    _unflat_into(flat / mesh.world, tensors)
+    _unflat_into(flat / mesh.dp, tensors)
 
 
 def gather_rows(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t`` stacked along the leading axis in rank order,
-    on every rank. An all-reduce of a zero-filled buffer that each rank
-    writes its block into: gloo takes CUDA tensors for all-reduce and
-    broadcast only, so the same code runs under both backends (x + 0 is
-    exact)."""
-    if mesh.group is None:
+    """Every data index's ``t`` stacked along the leading axis in data
+    order, on every rank. An all-reduce over the data group of a
+    zero-filled buffer that each rank writes its block into: gloo takes
+    CUDA tensors for all-reduce and broadcast only, so the same code
+    runs under both backends (x + 0 is exact)."""
+    if mesh.data_group is None:
         return t
     n = t.shape[0]
-    out = torch.zeros((n * mesh.world,) + tuple(t.shape[1:]),
+    out = torch.zeros((n * mesh.dp,) + tuple(t.shape[1:]),
                       dtype=t.dtype, device=t.device)
-    out[mesh.rank * n:(mesh.rank + 1) * n] = t
+    out[mesh.data_index * n:(mesh.data_index + 1) * n] = t
     return mesh.all_reduce_sum(out)
 
 
@@ -240,18 +289,19 @@ def replicate(mesh: Mesh, model):
 
 
 def rank_seed(mesh: Mesh, rng: Optional[int]) -> Optional[int]:
-    """A per-rank dropout seed, distinct from every other rank's (the
-    ``fold_in(rng, axis_index("data"))`` of the JAX step); the step's
-    own seed at world 1."""
-    return None if rng is None else rng * mesh.world + mesh.rank
+    """A dropout seed per data index, distinct from every other data
+    index's (the ``fold_in(rng, axis_index("data"))`` of the JAX step)
+    and the same on the model ranks of one, whose replicated activations
+    must draw the same masks; the step's own seed at dp 1."""
+    return None if rng is None else rng * mesh.dp + mesh.data_index
 
 
 def sharded_loss_and_grads(model, batch: Batch, cfg: MultiverseConfig,
                            mesh: Mesh, rng: Optional[int] = None):
     """The local shard's forward, loss and gradients, then the
-    gradients (one bucket) and the loss parts averaged over the ranks.
-    Returns ({name: gradient}, {loss name: scalar, "total" included}),
-    the same on every rank."""
+    gradients (one bucket) and the loss parts averaged over the data
+    group. Returns ({name: gradient of this rank's block}, {loss name:
+    scalar, "total" included}), the losses the same on every rank."""
     out = model_forward(model, batch, cfg, is_train=True,
                         rng=rank_seed(mesh, rng))
     total, parts = compute_loss(model, batch, out, cfg, mesh=mesh)
@@ -266,10 +316,12 @@ def sharded_loss_and_grads(model, batch: Batch, cfg: MultiverseConfig,
 
 def make_sharded_train_step(cfg: MultiverseConfig, tx, mesh: Mesh):
     """``step(model, opt_state, batch, rng=None) -> losses``: the
-    data-parallel counterpart of ``trainer.make_train_step`` on this
-    rank's shard (:func:`shard_batch`). The averaged gradients feed the
-    same in-place update on every rank; the returned losses are the
-    ranks' averages, on the device."""
+    data- and tensor-parallel counterpart of ``trainer.make_train_step``
+    on this rank's shard (:func:`shard_batch`) and, under tensor
+    parallelism, its parameter blocks (:func:`init_sharded_train_state`).
+    The averaged gradients feed the same elementwise in-place update on
+    every data rank; the returned losses are the data ranks' averages,
+    on the device."""
 
     def step(model, opt_state: dict, batch: Batch,
              rng: Optional[int] = None):
@@ -282,8 +334,15 @@ def make_sharded_train_step(cfg: MultiverseConfig, tx, mesh: Mesh):
 
 def init_sharded_train_state(model, tx, mesh: Mesh):
     """Rank 0's weights on every rank (:func:`replicate`), trainable,
-    and the optimizer slots made on each. Returns (model, opt_state)."""
-    model = replicate(mesh, model).requires_grad_(True)
+    and the optimizer slots made on each. Under tensor parallelism each
+    rank keeps only its block of every sharded leaf
+    (``tensor.shard_params``) and makes the slots from those blocks, as
+    the JAX package places its accumulators like the parameters. Returns
+    (model, opt_state)."""
+    model = replicate(mesh, model)
+    if mesh.model_parallel > 1:
+        model = shard_params(mesh, model)
+    model.requires_grad_(True)
     return model, tx.init(dict(model.named_parameters()))
 
 
@@ -310,12 +369,14 @@ def gather_outputs(mesh: Mesh, tree):
 
 def make_sharded_eval_step(cfg: MultiverseConfig, mesh: Mesh):
     """``step(model, shard) -> (class logits, reg)`` per scale: the
-    eval-mode forward on the rank's shard, gathered in rank order on
-    every rank."""
+    eval-mode forward on the rank's shard, gathered in data order on
+    every rank. A tensor-parallel model is gathered whole first
+    (``tensor.gather_params``; a caller that evaluates many batches
+    gathers once and passes the whole model)."""
     local = make_eval_step(cfg)
 
     def step(model, batch: Batch):
-        cl, rg = local(model, batch)
+        cl, rg = local(gather_params(mesh, model), batch)
         with torch.inference_mode():
             return gather_outputs(mesh, cl), gather_outputs(mesh, rg)
 
@@ -326,8 +387,10 @@ def make_sharded_beam_step(cfg: MultiverseConfig, mesh: Mesh,
                            T_pred: Optional[int] = None):
     """``step(model, shard) -> (BeamOutputs, reg_out)``: the diverse
     beam decode of the rank's trajectories (K beams stay with their
-    trajectory's rank), gathered in rank order on every rank."""
+    trajectory's rank), gathered in data order on every rank; a
+    tensor-parallel model is gathered whole first."""
     def step(model, batch: Batch):
+        model = gather_params(mesh, model)
         with torch.inference_mode():
             beam, reg = beam_forward(model, batch, cfg, T_pred=T_pred)
             return gather_outputs(mesh, beam), gather_rows(mesh, reg)
@@ -338,15 +401,35 @@ def make_sharded_beam_step(cfg: MultiverseConfig, mesh: Mesh,
 # ---------------------------------------------------------------- launch
 
 
+def _subgroups(mesh: Mesh, rank: int):
+    """(data group, model group) of ``rank``: the world where it is the
+    whole axis, None where the axis has size 1. Every rank makes every
+    subgroup, in one order (``new_group`` is collective over the
+    world)."""
+    mp, dp = mesh.model_parallel, mesh.dp
+    if mp == 1:
+        return dist.group.WORLD, None
+    if dp == 1:
+        return None, dist.group.WORLD
+    data = [dist.new_group([d * mp + m for d in range(dp)])
+            for m in range(mp)]
+    model = [dist.new_group([d * mp + m for m in range(mp)])
+             for d in range(dp)]
+    return data[rank % mp], model[rank // mp]
+
+
 def _join(mesh: Mesh, rank: int, store) -> Mesh:
-    """This rank's view of ``mesh``, joined to a new default group."""
+    """This rank's view of ``mesh``, joined to a new default group and
+    its data and model subgroups."""
     device = mesh.devices[rank]
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(
         mesh.backend, store=store, rank=rank, world_size=mesh.world,
-        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+        timeout=datetime.timedelta(seconds=mesh.timeout_s))
+    data, model = _subgroups(mesh, rank)
     return dataclasses.replace(mesh, rank=rank, group=dist.group.WORLD,
+                               data_group=data, model_group=model,
                                collectives=0)
 
 

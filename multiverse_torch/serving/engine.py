@@ -262,6 +262,9 @@ class ServingEngine:
                                       else mesh.device)
         self.cfg = cfg.validate()
         self.max_batch = int(max_batch)
+        if mesh is not None and mesh.model_parallel != 1:
+            raise ValueError("a serving mesh is data-parallel: "
+                             "model_parallel must be 1")
         if mesh is not None and self.max_batch % mesh.world != 0:
             raise ValueError(
                 f"max_batch {self.max_batch} not divisible by the mesh "

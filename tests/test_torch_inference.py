@@ -274,7 +274,9 @@ def test_port_never_imports_jax():
     (SimAug's and the scoring modules among them), the beam, greedy,
     int8a and int8_dyn (beam and greedy) paths run on the CPU, and so do
     one bf16 train step through mvt-torch-train's own pieces, one
-    data-parallel step in a group of one, one bf16 SimAug multiview step,
+    tensor-parallel step of two ranks (dp 1 x mp 2, in spawned processes
+    that end with none of those modules imported), one bf16 SimAug
+    multiview step,
     one minADE scoring, one preprocessed split, and the read of the
     committed orbax checkpoint of the JAX package (equal to the leaves
     made from its seed)."""
@@ -318,13 +320,12 @@ def test_port_never_imports_jax():
         "    rng=1)\n"
         "assert float(losses['total']) > 0\n"
         "from multiverse_torch import parallel\n"
-        "def dp(mesh):\n"
-        "    m, st = parallel.init_sharded_train_state(\n"
-        "        Multiverse.init(tcfg), tx, mesh)\n"
-        "    return float(parallel.make_sharded_train_step(tcfg, tx, mesh)(\n"
-        "        m, st, parallel.shard_batch(mesh, ds.make_batch(\n"
-        "            [0, 1, 2, 3])[0]), 1)['total'])\n"
-        "assert parallel.launch(dp, parallel.make_mesh(devices=['cpu']))[0] > 0\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_parallel_ranks\n"
+        "tp = parallel.launch(torch_parallel_ranks.tp_step_without_jax,\n"
+        "    parallel.make_mesh(devices=['cpu'] * 2, model_parallel=2),\n"
+        "    tcfg, timeout=200)\n"
+        "assert all(loss > 0 and not mods for loss, mods in tp), tp\n"
         "for name in ('models.simaug', 'data.multiview', 'cli.train_simaug',\n"
         "             'eval.multifuture', 'eval.sdd',\n"
         "             'cli.multifuture_eval_trajs',\n"

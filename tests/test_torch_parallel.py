@@ -76,17 +76,33 @@ def run2(fn, *args):
 
 
 def test_mesh_shapes_and_errors():
+    """JAX's test_mesh_shapes: {"data": 8, "model": 1}, then {"data": 4,
+    "model": 2} with the model index varying fastest, and 7 devices at
+    model_parallel 2 raising."""
     mesh = parallel.make_mesh(devices=["cpu"] * 8)
     assert mesh.shape == {"data": 8, "model": 1}
     assert mesh.backend == "gloo" and mesh.world == 8 and mesh.is_main
+    mesh = parallel.make_mesh(devices=["cpu"] * 8, model_parallel=2)
+    assert mesh.shape == {"data": 4, "model": 2}
+    jmesh = jpar.make_mesh(n_devices=8, model_parallel=2)
+    assert mesh.shape == dict(jmesh.shape)
+    order = [[d.id for d in row] for row in jmesh.devices]
+    for rank in range(8):
+        r = dataclasses.replace(mesh, rank=rank)
+        assert order[r.data_index][r.model_index] == rank
     # JAX's errors: too few devices, a world model_parallel does not divide
     with pytest.raises(ValueError, match="expected 2 devices, found 1"):
         parallel.make_mesh(n_devices=2, device_type="cpu")
     with pytest.raises(ValueError, match="not divisible by model_parallel"):
         parallel.make_mesh(devices=["cpu"] * 7, model_parallel=2)
-    # tensor parallelism stays refused
-    with pytest.raises(ValueError, match="tensor parallelism"):
-        parallel.make_mesh(devices=["cpu"] * 8, model_parallel=2)
+    # fewer devices than model_parallel (JAX's make_mesh_for_batch raises
+    # ValueError there too)
+    with pytest.raises(ValueError, match="needs 2 devices, found 1"):
+        parallel.make_mesh_for_batch(20, model_parallel=2,
+                                     devices=["cuda:0"])
+    got = parallel.make_mesh_for_batch(6, model_parallel=2,
+                                       devices=["cpu"] * 8)
+    assert got.shape == {"data": 3, "model": 2}
     # the backend follows the devices: NCCL cannot put two ranks on one
     assert parallel.make_mesh(devices=["cuda:0", "cuda:0"]).backend == "gloo"
     assert parallel.make_mesh(devices=["cuda:0", "cuda:1"]).backend == "nccl"

@@ -21,6 +21,7 @@ import torch
 from multiverse_tpu.data.dataset import read_data as jax_read_data
 from multiverse_tpu.models import model_forward as jax_model_forward
 from multiverse_torch.bridge import load_params_npz, params_to_numpy_tree
+from multiverse_torch.cli.common import config_from_args
 from multiverse_torch.cli import multifuture_inference as tinf_cli
 from multiverse_torch.cli import test as ttest
 from multiverse_torch.cli import train as ttrain
@@ -29,8 +30,11 @@ from multiverse_torch.data.dataset import (
     read_data,
     synthesize_prepro,
 )
-from multiverse_torch.models import model_forward
-from multiverse_torch.train.checkpoints import resolve_checkpoint
+from multiverse_torch.models import Multiverse, model_forward
+from multiverse_torch.train.checkpoints import (
+    load_checkpoint,
+    resolve_checkpoint,
+)
 from synthetic import (
     tiny_config,
     write_multifuture_dataset,
@@ -187,9 +191,25 @@ def test_train_cli_resumes_and_refuses(trained, prepro):
     # saves continue above the loaded run's steps
     steps = sorted(os.listdir(os.path.join(trained, "save")))
     assert steps[-1] > "step_00000010.npz"
-    with pytest.raises(SystemExit, match="model_parallel"):
-        ttrain.main([path, outbase, "toy", "--model_parallel", "2",
-                     "--device", "cpu", *MODEL_FLAGS])
+    # --model_parallel 2 on the CPU: two gloo ranks, each with half of
+    # every weight; its one step is saved whole and loads at mp = 1,
+    # equal to a one-process run's step within the step tolerance
+    tp_prepro = synthesize_prepro(os.path.join(root, "tp_prepro"),
+                                  tiny_config(), n_train=4, n_val=4, seed=5)
+    flags = [tp_prepro, outbase, "tp", "--batch_size", "4", "--num_epochs",
+             "1", "--save_period", "1", "--device", "cpu", *MODEL_FLAGS]
+    two = ttrain.main(flags + ["--runId", "2", "--model_parallel", "2"])
+    one = ttrain.main(flags + ["--runId", "1"])
+    assert (two["steps"], two["world"], one["world"]) == (1, 2, 1)
+    assert two["best"]["step"] == one["best"]["step"] == 1
+    cfg = config_from_args(ttrain.build_parser().parse_args(flags))
+    got, want = (load_checkpoint(
+        os.path.join(outbase, "tp", run, "save"), Multiverse.init(cfg))
+        for run in ("02", "01"))
+    for (n, a), (_, b) in zip(sorted(got.named_parameters()),
+                              sorted(want.named_parameters())):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-3,
+                                   atol=1e-5, err_msg=n)
     orbax_like = os.path.join(root, "orbax_run")
     os.makedirs(os.path.join(orbax_like, "300"))
     with pytest.raises(ValueError, match="orbax"):

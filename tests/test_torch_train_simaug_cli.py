@@ -4,7 +4,8 @@ scene encoder forced on) plus ``--device`` and ``--model_parallel``;
 ``main --device cpu`` on tiny 4-camera data (multiview exp 3, FGSM,
 mixup, double weighting, dropout) writes config.json with the SimAug
 fields, npz ``{save,best}`` checkpoints that load back and
-``val_perf.json``, and resumes with ``--load`` above its last step; it
+``val_perf.json``, and resumes with ``--load`` above its last step; its
+periodic eval over two gloo ranks equals the one-process eval; it
 refuses a ``--load_from`` whose step directory is not a finished orbax
 step, ``--model_parallel`` other than 1 and the scene encoder off."""
 
@@ -15,11 +16,15 @@ import numpy as np
 import pytest
 
 from multiverse_tpu.cli import train_simaug as jax_cli
+from multiverse_torch import parallel
 from multiverse_torch.bridge import load_params_npz
 from multiverse_torch.cli import train_simaug as cli
+from multiverse_torch.data.dataset import batch_to_device, read_data
 from multiverse_torch.data.multiview import synthesize_multiview_prepro
 from multiverse_torch.models.simaug import SimAugConfig
 from multiverse_torch.train.checkpoints import list_steps
+from multiverse_torch.train.evaluate import evaluate
+from multiverse_torch.train.trainer import make_eval_step
 
 MODEL_FLAGS = [
     "--obs_len", "4", "--pred_len", "5",
@@ -93,6 +98,42 @@ def test_main_on_cpu_writes_checkpoints_config_and_val_perf(prepro, capsys):
                      "--num_epochs", "1"])
     assert [s for s, _ in list_steps(os.path.join(run, "save"))][-2:] == \
         [8, 10]
+
+
+def test_eval_shards_over_two_ranks_as_one_device(prepro):
+    """The periodic eval over two gloo ranks (rank 0 trains and sends
+    the weights; each rank decodes its half of every val batch): each
+    eval's metrics equal the one-process eval of the step rank 0 saved
+    there."""
+    root, path = prepro
+    out = os.path.join(root, "out_sharded")
+    args = cli.build_parser().parse_args([
+        path, out, "simaug", "--device", "cpu", "--batch_size", "4",
+        "--num_epochs", "1", "--save_period", "3", "--init_lr", "0.3",
+        *MODEL_FLAGS, *SIMAUG_FLAGS])
+    two = parallel.launch(cli.simaug_worker,
+                          parallel.make_mesh(devices=["cpu", "cpu"]), args,
+                          timeout=150)
+    assert [r["world"] for r in two] == [2, 2]
+    assert two[1]["evals"] == len(two[0]["evals"]) == 2
+    cfg = cli.simaug_config_from_args(args)
+    val = read_data(path, "val", cfg)
+    step = make_eval_step(cfg)
+    saves = list_steps(os.path.join(out, "simaug", "00", "save"))
+    assert [s for s, _ in saves] == [3, 5]
+    for (_, ckpt), got in zip(saves, two[0]["evals"]):
+        model = load_params_npz(ckpt)
+
+        def eval_fn(batch):
+            cl, rg = step(model, batch_to_device(batch, "cpu"))
+            return ({i: v.numpy() for i, v in cl.items()},
+                    {i: v.numpy() for i, v in rg.items()})
+
+        want = evaluate(val, cfg, eval_fn)
+        assert set(got) == set(want)
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-6,
+                                       err_msg=k)
 
 
 def test_refusals(prepro, tmp_path):

@@ -21,9 +21,9 @@ from multiverse_torch.train import trainer
 
 
 def train_steps(mesh, cfg, tree, batches, num_examples, rngs=None):
-    """The data-parallel step over ``batches`` (host Batches) from the
-    weights ``tree``. Returns (per-step losses, final weights as a numpy
-    tree, this rank's collective calls)."""
+    """The data- (and tensor-) parallel step over ``batches`` (host
+    Batches) from the weights ``tree``. Returns (per-step losses, final
+    whole weights as a numpy tree, this rank's collective calls)."""
     tx = trainer.build_optimizer(cfg, num_examples)
     model, opt_state = parallel.init_sharded_train_state(
         params_from_jax(tree), tx, mesh)
@@ -33,7 +33,9 @@ def train_steps(mesh, cfg, tree, batches, num_examples, rngs=None):
         parts = step(model, opt_state, parallel.shard_batch(mesh, batch),
                      None if rngs is None else rngs[i])
         losses.append({k: float(v) for k, v in parts.items()})
-    return losses, params_to_numpy_tree(model), mesh.collectives
+    calls = mesh.collectives
+    whole = params_to_numpy_tree(parallel.gather_params(mesh, model))
+    return losses, whole, calls
 
 
 def dropout_losses(mesh, cfg, tree, batch, rng):
@@ -143,6 +145,113 @@ def train_cli(mesh, argv, guard_root):
             mock.patch.object(os, "replace", guarded_replace):
         return ttrain.train_worker(mesh, args)
 
+
+# ------------------------------------------------- tensor parallelism
+
+
+def boundary(mesh, kind, arrays):
+    """One layer with its weights split over the model ranks
+    (``tensor.Shard``): ``column`` / ``row`` a conv2d (ReLU) sharded on
+    its output / input channels, ``lstm`` a ConvLSTM step by hidden
+    channel. ``arrays``: the whole x, weights, state and cotangents
+    (numpy). Returns the forward outputs and the gradients of the
+    cotangent-weighted sum: inputs whole, weights as this rank's
+    blocks."""
+    from multiverse_torch.ops import ConvLSTMState, conv2d, convlstm_step
+    from multiverse_torch.parallel.tensor import leaf_shard
+
+    t = {k: torch.from_numpy(v) for k, v in arrays.items()}
+    names = ("kernel", "bias") if kind == "lstm" else ("w", "b")
+    params = {}
+    for n in names:
+        shard = leaf_shard(mesh, n, t[n].shape)
+        p = torch.nn.Parameter(t[n] if shard is None else shard.block(t[n]))
+        p.shard = shard
+        params[n] = p
+    x = t["x"].requires_grad_(True)
+    if kind == "lstm":
+        d = t["c"].shape[-1] // mesh.model_parallel
+        own = slice(mesh.model_index * d, (mesh.model_index + 1) * d)
+        c = t["c"][..., own].clone().requires_grad_(True)
+        h = t["h"].requires_grad_(True)
+        out, state = convlstm_step(params, x, ConvLSTMState(c=c, h=h))
+        loss = (torch.sum(out * t["cot"])
+                + torch.sum(state.c * t["cot_c"][..., own]))
+        loss.backward()
+        grads = {"x": x.grad, "h": h.grad, "c": c.grad}
+        outs = {"h": out, "c": state.c}
+    else:
+        out = conv2d(params, x, activation=torch.relu)
+        torch.sum(out * t["cot"]).backward()
+        grads, outs = {"x": x.grad}, {"out": out}
+    grads.update({n: params[n].grad for n in names})
+    return ({k: v.detach().numpy() for k, v in outs.items()},
+            {k: v.numpy() for k, v in grads.items()}, mesh.model_collectives)
+
+
+def dropout_forward(mesh, cfg, tree, batch, rng):
+    """The tensor-parallel train-mode forward at ``cfg.keep_prob`` < 1 of
+    this rank's shard, with the step's seed (``rank_seed``): its class
+    logits and regression per scale and its loss."""
+    tx = trainer.build_optimizer(cfg, 40)
+    model, _ = parallel.init_sharded_train_state(params_from_jax(tree), tx,
+                                                 mesh)
+    shard = parallel.shard_batch(mesh, batch)
+    with torch.no_grad():
+        out = model_forward(model, shard, cfg, is_train=True,
+                            rng=rank_seed(mesh, rng))
+        loss = float(compute_loss(model, shard, out, cfg, mesh=mesh)[0])
+    return parallel.map_tensors(lambda t: t.numpy(), (
+        out.class_logits, out.reg_out)), loss
+
+
+def tp_suite(mesh, boundaries, steps, dropout, save_dir):
+    """A tensor-parallel launch's cases in one spawn: each ``boundaries``
+    case, :func:`train_steps` of each ``steps`` case, :func:`dropout_forward`
+    and, with ``save_dir``, a train step's gathered weights saved by
+    rank 0 through ``CheckpointManager`` (every rank gathers)."""
+    from multiverse_torch.train.checkpoints import CheckpointManager
+
+    out = {"boundaries": {k: boundary(mesh, k, a)
+                          for k, a in boundaries.items()},
+           "steps": {k: train_steps(mesh, *a) for k, a in steps.items()}}
+    if dropout is not None:
+        out["dropout"] = dropout_forward(mesh, *dropout)
+    if save_dir is not None:
+        cfg, tree, batches, n = steps["unmasked"][:4]
+        tx = trainer.build_optimizer(cfg, n)
+        model, opt_state = parallel.init_sharded_train_state(
+            params_from_jax(tree), tx, mesh)
+        parallel.make_sharded_train_step(cfg, tx, mesh)(
+            model, opt_state, parallel.shard_batch(mesh, batches[0]))
+        whole = parallel.gather_params(mesh, model)
+        if mesh.is_main:
+            CheckpointManager(save_dir).save(1, whole)
+        out["saved"] = params_to_numpy_tree(whole)
+        out["block_bytes"] = sum(
+            p.numel() * p.element_size() for p in model.parameters())
+    return out
+
+
+def tp_step_without_jax(mesh, cfg):
+    """One tensor-parallel train step (seeded weights, synthetic data,
+    dropout on) of this rank. Returns (its loss, the modules of jax, the
+    JAX package, orbax, tensorstore or zstandard this process holds)."""
+    import sys
+
+    from multiverse_torch.data import dataset
+    from multiverse_torch.models import Multiverse
+
+    ds = dataset.dataset_from_arrays(dataset.synthesize_split(cfg, 4, seed=0),
+                                     cfg, "train")
+    tx = trainer.build_optimizer(cfg, 4)
+    model, opt_state = parallel.init_sharded_train_state(
+        Multiverse.init(cfg), tx, mesh)
+    loss = float(parallel.make_sharded_train_step(cfg, tx, mesh)(
+        model, opt_state, parallel.shard_batch(
+            mesh, ds.make_batch([0, 1, 2, 3])[0]), 1)["total"])
+    return loss, sorted(m for m in sys.modules if m.startswith(
+        ("jax", "multiverse_tpu", "orbax", "tensorstore", "zstandard")))
 
 
 def fail_on_rank_1(mesh):
