@@ -233,6 +233,36 @@
    whole weights it gathered at tolerance 0 and (a)'s within
    DP_UPDATE_RTOL, and ``mvt-torch-test`` evaluates it in one process
    on the card (K1).
+12. Data-preparation phase (``multiverse_torch/cli/prepare_data.py``,
+   host numpy), in phase 6's temporary directory after phase 11, with
+   no jax. (a) The Forking Paths benchmark at
+   its published widths (VIRAT scene 0000, 30 fps, 1920x1080): bbox
+   JSONs in the recorder's format for 4 moments x 2 cameras x 5
+   annotated futures (40 videos, 8 obs keys) and 8 anchor videos of 4
+   persons, and a 36x64 scene class map per needed frame (written here:
+   no recorder renders seg MP4s; (c) decodes some), through the commands'
+   own mains: ``mvt-torch-split-path``, ``-prepare-multifuture`` (0
+   skipped, 8 obs, every file of the JAX layout, each GT pickle 5
+   futures of 12 steps), ``-prepare-anchor``, ``-preprocess`` with
+   TRAINING.md section 1's flags, ``mvt-torch-train`` for one epoch at
+   the published configuration in bf16 (K4/K5 steps x 12, eval K1 val
+   batches x 12, a save at the end), ``mvt-torch-multifuture-inference``
+   of that run's newest step on the 8 prepared obs in bf16 (K1) and
+   int8a (K3), K = 20 (each kernel batches x T times), and
+   ``mvt-torch-eval-trajs`` and ``-eval-prob`` on both outputs (every
+   number finite; the numbers are information after one epoch). (b)
+   ``mvt-torch-prepare-sdd`` (4 SDD videos of 10,000 annotation lines,
+   one rotated), ``-sdd-splits``, ``-prepare-argoverse`` (2 logs of 300
+   label files of 40 cuboids), ``-combine-traj`` with and without
+   ``--is_actev`` on (a)'s anchor TSVs, and ``-gen-moments``, each timed
+   (host seconds and rows/s beside the card's name and power limit) and
+   checked for its outputs. (c) Where cv2 or yaml cannot be imported,
+   ``mvt-torch-sdd-frames``, ``-resize-rotate-sdd``,
+   ``-extract-frames-seg`` and ``-get-vehicle-traj`` must stop with an
+   ImportError naming the package and the command, having written
+   nothing; where one can, its commands run on small generated inputs
+   and their outputs are checked. Phase 12's K1, K3, K4 and K5 launches
+   are added to the paths'.
 
 Prints one JSON line describing the kernels, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero;
@@ -256,6 +286,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import importlib.util
+import io
 import json
 import os
 import pickle
@@ -275,12 +306,16 @@ import torch
 import torch.distributed as dist
 
 from multiverse_torch import inference
+from multiverse_torch.cli import multifuture_eval_trajs as eval_trajs_cli
+from multiverse_torch.cli import multifuture_eval_trajs_prob as eval_prob_cli
 from multiverse_torch.cli import multifuture_inference as inference_cli
+from multiverse_torch.cli import prepare_data as prepare_cli
 from multiverse_torch.cli import preprocess as preprocess_cli
 from multiverse_torch.cli import serve
 from multiverse_torch.cli import train as train_cli
 from multiverse_torch.cli import test as test_cli
 from multiverse_torch.cli import train_simaug as simaug_cli
+from multiverse_torch.cli import vis_annotation as vis_annotation_cli
 from multiverse_torch.config import MultiverseConfig
 from multiverse_torch import parallel
 from multiverse_torch.bridge import (
@@ -297,6 +332,8 @@ from multiverse_torch.data.multiview import (
     MultiviewDataset,
     synthesize_multiview_prepro,
 )
+from multiverse_torch.forking_paths import controls as fp_controls
+from multiverse_torch.forking_paths import prepared_data
 from multiverse_torch.geometry import one_hot_grid
 from multiverse_torch.models import Multiverse, simaug
 from multiverse_torch.native import zstd
@@ -3250,6 +3287,707 @@ def wmma_shares(tree: str) -> None:
              float((gate_input_bf16(*args) == h2).float().mean())))
 
 
+# ------------------------------------------------------- data preparation
+
+# phase 12 (a): the Forking Paths benchmark at its published widths, VIRAT
+# scene 0000 at 30 fps, 1920x1080. A multi-future video holds
+# PREP_MF_FRAMES frames, so the drop of 12 from frame 40 samples 20 of
+# them: obs 8 + pred 12 (300 frames would give pred 14). PREP_MOMENTS
+# moments x PREP_CAMERAS cameras x PREP_FUTURES annotated futures: 40
+# videos in 8 obs keys (cam4 is the top-down view the evaluators score
+# apart). The x-agent (track PREP_X_AGENT) walks as in every future of its
+# obs key until PREP_DIVERGE, then turns its own way in each
+PREP_MF_FRAMES, PREP_DIVERGE, PREP_X_AGENT = 280, 124, 3
+PREP_MOMENTS, PREP_CAMERAS, PREP_FUTURES = 4, ("cam1", "cam4"), 5
+PREP_PERSONS, PREP_VEHICLES = 6, 2
+# anchor (single-future) videos of PREP_ANCHOR_PERSONS persons: 600 frames
+# sampled every 12th are 50 frames, 31 windows of obs 8 + pred 12 a
+# person; each goes to the split of its VIRAT source (split-path
+# --is_anchor)
+PREP_ANCHORS = {"train": 6, "val": 1, "test": 1}
+PREP_ANCHOR_PERSONS, PREP_ANCHOR_FRAMES = 4, 600
+PREP_ANCHOR_SCENES = {"train": "0400", "val": "0401", "test": "0000"}
+# the published configuration for one epoch, one save and eval at its end
+PREP_TRAIN_FLAGS = list(TRAIN_FLAGS)
+PREP_TRAIN_FLAGS[PREP_TRAIN_FLAGS.index("--num_epochs") + 1] = "1"
+PREP_TRAIN_FLAGS[PREP_TRAIN_FLAGS.index("--save_period") + 1] = "100000"
+# mvt-torch-multifuture-inference of that run at the training's
+# configuration: K = 20 diverse beams (the README quick start), bf16
+PREP_DECODE_FLAGS = ["--num_out", "20", "--diverse_beam", "--diverse_gamma",
+                     "0.01", "--fix_num_timestep", "1", "--use_gnn",
+                     "--use_scene_enc", "--use_soft_grid_class",
+                     "--grid_strides", "2,4", "--use_grids", "1,0",
+                     "--compute_dtype", "bfloat16", "--device", "cuda"]
+# (b): SDD annotations.txt of PREP_SDD_VIDEOS videos of about
+# PREP_SDD_LINES lines (the first portrait, rotated by the change list);
+# the SDD's 60 video names split into 5 folds; Argoverse logs of
+# PREP_ARGO_SWEEPS label files of PREP_ARGO_LABELS cuboids (10 Hz for 30
+# s); PREP_GEN_MOMENTS moments with two annotations each
+PREP_SDD_VIDEOS, PREP_SDD_LINES, PREP_SDD_ALL = 4, 10000, 60
+PREP_ARGO_LOGS, PREP_ARGO_SWEEPS, PREP_ARGO_LABELS = 2, 300, 40
+PREP_GEN_MOMENTS = 32
+PREP_ARGO_CAL = {"camera_data_": [{
+    "key": "image_raw_ring_front_center", "value": {
+        "vehicle_SE3_camera_": {
+            "translation": [1.65, 0.01, 1.39],
+            "rotation": {"coefficients": [0.5, -0.5, 0.5, -0.5]}},
+        "focal_length_x_px_": 1392.1, "skew_": 0.0,
+        "focal_center_x_px_": 980.2, "focal_length_y_px_": 1392.1,
+        "focal_center_y_px_": 604.4}}]}
+# (c): the commands that need an optional package the port imports only
+# inside them: (command, main, positional arguments)
+PREP_GATED = {
+    "cv2": (("mvt-torch-sdd-frames", prepare_cli.sdd_frames_main, 3),
+            ("mvt-torch-resize-rotate-sdd",
+             prepare_cli.resize_rotate_sdd_main, 3),
+            ("mvt-torch-extract-frames-seg",
+             vis_annotation_cli.extract_frames_seg_main, 5)),
+    "yaml": (("mvt-torch-get-vehicle-traj",
+              prepare_cli.get_vehicle_traj_main, 4),)}
+
+
+def walker_boxes(rng, n_frames: int, persons: int, vehicles: int,
+                 x_agent: int = -1, turn: float = 0.0,
+                 spread: float = 0.8) -> list:
+    """Bbox-JSON records of the Forking Paths recorder (``frame_id``,
+    ``track_id``, ``class_name``, ``is_x_agent``, ``bbox`` as x, y, w, h)
+    in a 1920x1080 frame: persons (40x100 boxes, feet at the walker) and
+    vehicles walking straight at up to ``spread`` px a frame, inside the
+    frame; the x-agent turns by ``turn`` px a frame after PREP_DIVERGE."""
+    n = persons + vehicles
+    start = rng.uniform([350.0, 460.0], [1550.0, 740.0], (n, 2))
+    vel = rng.uniform(-spread, spread, (n, 2))
+    boxes = []
+    for f in range(n_frames):
+        for t in range(n):
+            x, y = start[t] + vel[t] * f
+            if t == x_agent and f > PREP_DIVERGE:
+                y += turn * (f - PREP_DIVERGE)
+            person = t < persons
+            w, h = (40.0, 100.0) if person else (200.0, 120.0)
+            boxes.append({"frame_id": f,
+                          "track_id": t if person else 100 + t,
+                          "class_name": "Person" if person else "Vehicle",
+                          "is_x_agent": int(t == x_agent),
+                          "bbox": [round(float(x) - w / 2, 3),
+                                   round(float(y) - h, 3), w, h]})
+    return boxes
+
+
+def write_forking_paths(root: str, cfg) -> dict:
+    """Phase 12 (a)'s inputs: the bbox JSONs of the multi-future and
+    anchor videos, the rendered mp4 names split-path globs (empty), the
+    original VIRAT split lists, and a scene class map per needed frame.
+    No recorder runs here to render seg MP4s, so the maps are written
+    as the frames-and-seg step writes them (36x64 uint8 .npy in
+    ``<name>/<name>_F_%08d.npy``, classes of phase 6's scene id json);
+    (c) drives that step on rendered palette videos where cv2 imports."""
+    rng = np.random.RandomState(12)
+    paths = {k: os.path.join(root, k) for k in (
+        "ds", "videos_mf", "videos_anchor", "ori", "scene_anchor",
+        "scene_mf")}
+    for p in paths.values():
+        os.makedirs(p)
+    os.makedirs(os.path.join(paths["ds"], "bbox"))
+
+    def write(name: str, boxes: list, videos: str) -> None:
+        with open(os.path.join(paths["ds"], "bbox", name + ".json"),
+                  "w") as f:
+            json.dump(boxes, f)
+        open(os.path.join(paths[videos], name + ".mp4"), "w").close()
+
+    def scene_maps(where: str, name: str, frames) -> None:
+        os.makedirs(os.path.join(where, name))
+        for fr in frames:
+            np.save(os.path.join(where, name, "%s_F_%08d.npy" % (name, fr)),
+                    rng.randint(0, cfg.scene_class, (cfg.scene_h, cfg.scene_w))
+                    .astype(np.uint8))
+
+    obs_keys = []
+    for m in range(PREP_MOMENTS):
+        for cam in PREP_CAMERAS:
+            seed = rng.randint(1 << 30)
+            for d in range(PREP_FUTURES):
+                write("0000_%d_%d_%d_a%d_%s" % (m, PREP_X_AGENT, d, d, cam),
+                      walker_boxes(np.random.RandomState(seed),
+                                   PREP_MF_FRAMES, PREP_PERSONS,
+                                   PREP_VEHICLES, x_agent=PREP_X_AGENT,
+                                   turn=0.25 * (d - PREP_FUTURES // 2)),
+                      "videos_mf")
+            key = "0000_%d_%d_%s" % (m, PREP_X_AGENT, cam)
+            obs_keys.append(key)
+            scene_maps(paths["scene_mf"], key, range(0, 8 * 12, 12))
+    anchors = {}
+    for split, n in PREP_ANCHORS.items():
+        for v in range(n):
+            source = "VIRAT_S_%s%02d_00" % (PREP_ANCHOR_SCENES[split], v)
+            name = "%s_F_%d_1" % (source, v)
+            anchors.setdefault(split, []).append(name)
+            write(name, walker_boxes(rng, PREP_ANCHOR_FRAMES,
+                                     PREP_ANCHOR_PERSONS, PREP_VEHICLES,
+                                     spread=0.5), "videos_anchor")
+            scene_maps(paths["scene_anchor"], name,
+                       range(0, PREP_ANCHOR_FRAMES, 12))
+        with open(os.path.join(paths["ori"], split + ".lst"), "w") as f:
+            f.write("".join("videos/%s.mp4\n" % a.split("_F_")[0]
+                            for a in anchors[split]))
+    paths.update(obs_keys=obs_keys, anchors=anchors)
+    return paths
+
+
+def timed_main(what: str, card: str, main, argv: list, rows: int,
+               unit: str):
+    """Run a command's ``main`` once; prints its host seconds and
+    ``rows`` ``unit`` a second beside the card's name and power limit
+    (host numpy: the card is idle). Returns (seconds, what it returned)."""
+    t0 = time.perf_counter()
+    out = main(argv)
+    dt = time.perf_counter() - t0
+    print("data-prep phase (%s): %s %.4f s, %d %s, %.1f %s/s (host)"
+          % (card, what, dt, rows, unit, rows / dt, unit))
+    return dt, out
+
+
+def need_files(what: str, paths) -> None:
+    missing = [p for p in paths if not os.path.exists(p)]
+    if missing:
+        raise AssertionError("%s: missing %s" % (what, missing[:5]))
+
+
+def scores(main, argv: list) -> list:
+    """The numbers an evaluator prints on its last line (it prints them
+    here too)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    text = buf.getvalue()
+    print(text, end="")
+    return [float(x) for x in text.strip().splitlines()[-1].split()]
+
+
+def prep_chain(dev, tmp: str, card: str) -> dict:
+    """Phase 12 (a): bbox JSONs -> split-path -> prepare-multifuture and
+    prepare-anchor -> preprocess -> one epoch of training -> the bf16 and
+    int8a multi-future decodes -> both evaluators. Returns the launches of
+    K1, K3, K4 and K5."""
+    cfg = train_config()
+    root = os.path.join(tmp, "prep")
+    inp = write_forking_paths(root, cfg)
+    id2name = os.path.join(tmp, "scene36_64_id2name_top10.json")
+    out = {k: os.path.join(root, k) for k in (
+        "split_mf", "split_anchor", "obs", "mf", "anchor", "prepro", "out")}
+    n_mf = PREP_MOMENTS * len(PREP_CAMERAS) * PREP_FUTURES
+    n_anchor = sum(PREP_ANCHORS.values())
+
+    timed_main("mvt-torch-split-path (multi-future)", card,
+               prepare_cli.split_path_main,
+               [inp["videos_mf"], out["split_mf"]], n_mf, "videos")
+    timed_main("mvt-torch-split-path --is_anchor", card,
+               prepare_cli.split_path_main,
+               [inp["videos_anchor"], out["split_anchor"], "--is_anchor",
+                "--ori_split_path", inp["ori"]], n_anchor, "videos")
+    with open(os.path.join(out["split_mf"], "test.lst")) as f:
+        if len(f.read().split()) != n_mf:
+            raise AssertionError("split-path: not every video in test.lst")
+    stats = []
+    real = prepared_data.prepare_multifuture_split
+
+    def recorded(*args, **kw):
+        stats.append(real(*args, **kw))
+        return stats[-1]
+    boxes = n_mf * PREP_MF_FRAMES * (PREP_PERSONS + PREP_VEHICLES)
+    with mock.patch.object(prepared_data, "prepare_multifuture_split",
+                           recorded):
+        timed_main("mvt-torch-prepare-multifuture", card,
+                   prepare_cli.prepare_multifuture_main,
+                   [inp["ds"], out["split_mf"], out["obs"], out["mf"]],
+                   boxes, "boxes")
+    if len(stats) != 1 or stats[0]["skipped"] != 0 \
+            or stats[0]["num_obs"] != len(inp["obs_keys"]):
+        raise AssertionError(f"prepare-multifuture: {stats}")
+    need_files("prepare-multifuture", [
+        os.path.join(out[d], sub, "test", key + ext)
+        for key in inp["obs_keys"] for d, sub, ext in (
+            ("obs", "traj_2.5fps", ".txt"), ("obs", "anno_person_box", ".p"),
+            ("obs", "anno_other_box", ".p"), ("mf", "", ".p"))])
+    for key in inp["obs_keys"]:
+        with open(os.path.join(out["mf"], "test", key + ".p"), "rb") as f:
+            gt = pickle.load(f)
+        lengths = [len(g["x_agent_traj"]) for g in gt.values()]
+        if lengths != [12] * PREP_FUTURES:
+            raise AssertionError(f"{key}: GT futures of {lengths} steps")
+    timed_main("mvt-torch-prepare-anchor", card,
+               prepare_cli.prepare_anchor_main,
+               [inp["ds"], out["split_anchor"], out["anchor"]],
+               n_anchor * PREP_ANCHOR_FRAMES
+               * (PREP_ANCHOR_PERSONS + PREP_VEHICLES), "boxes")
+    need_files("prepare-anchor", [
+        os.path.join(out["anchor"], sub, split, name + ext)
+        for split, names in inp["anchors"].items() for name in names
+        for sub, ext in (("traj_2.5fps", ".txt"), ("anno_person_box", ".p"),
+                         ("anno_other_box", ".p"))])
+    windows = (PREP_ANCHOR_FRAMES // 12 - cfg.seq_len + 1) \
+        * PREP_ANCHOR_PERSONS
+    timed_main("mvt-torch-preprocess (anchor TSVs)", card,
+               preprocess_cli.main,
+               [os.path.join(out["anchor"], "traj_2.5fps"), out["prepro"],
+                "--scene_feat_path", inp["scene_anchor"],
+                "--scene_id2name", id2name, *PREPRO_FLAGS],
+               n_anchor * windows, "examples")
+    for split, n in PREP_ANCHORS.items():
+        with np.load(os.path.join(out["prepro"], "data_%s.npz" % split),
+                     allow_pickle=True) as d:
+            if len(d["obs_traj"]) != n * windows:
+                raise AssertionError(f"preprocess: {split} has "
+                                     f"{len(d['obs_traj'])} examples")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    result = train_cli.main([out["prepro"], out["out"], "prepared",
+                             *PREP_TRAIN_FLAGS])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K4": gnn_dense_fwd.launches, "K5": gnn_dense_bwd.launches,
+                "K1": decode_step_gathered.launches}
+    steps = result["steps"]
+    eval_batches = -(-PREP_ANCHORS["val"] * windows // cfg.batch_size)
+    print("data-prep phase: mvt-torch-train one epoch on the prepared data, "
+          "%d steps in %.3f s; launches K4 %d, K5 %d, eval K1 %d"
+          % (steps, wall, launches["K4"], launches["K5"], launches["K1"]))
+    if steps != -(-PREP_ANCHORS["train"] * windows // cfg.batch_size) \
+            or launches["K4"] != steps * cfg.pred_len \
+            or launches["K5"] != steps * cfg.pred_len \
+            or launches["K1"] != eval_batches * cfg.pred_len:
+        raise AssertionError(f"data-prep phase: {steps} steps, launches "
+                             f"{launches}")
+    run = os.path.join(out["out"], "prepared", "00")
+    need_files("mvt-torch-train", [os.path.join(run, f) for f in (
+        "config.json", "val_perf.json", "save", "best")])
+
+    launches["K3"] = 0
+    for tier, kernel in (("none", "K1"), ("int8a", "K3")):
+        traj_p = os.path.join(root, "%s.traj.p" % tier)
+        prob_p = os.path.join(root, "%s.prob.p" % tier)
+        reset_launches()
+        t0 = time.perf_counter()
+        inference_cli.main([os.path.join(run, "save"),
+                            os.path.join(out["obs"], "traj_2.5fps", "test"),
+                            os.path.join(out["mf"], "test"), traj_p,
+                            "--save_prob_file", prob_p, "--decode_quant",
+                            tier, "--scene_feat_path", inp["scene_mf"],
+                            "--scene_id2name", id2name, *PREP_DECODE_FLAGS])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ran = tier_launches(tier)
+        batches = -(-len(inp["obs_keys"]) // 16)
+        print("data-prep phase: mvt-torch-multifuture-inference %s on the "
+              "%d prepared obs in %.3f s (load included); %s ran %d times "
+              "(%d batches x T 12)" % (tier, len(inp["obs_keys"]), dt,
+                                       kernel, ran, batches))
+        if ran != batches * 12:
+            raise AssertionError(f"the {tier} decode ran {ran} steps")
+        launches[kernel] += ran
+        with open(traj_p, "rb") as f:
+            trajs = pickle.load(f)
+        with open(prob_p, "rb") as f:
+            probs = pickle.load(f)
+        if sorted(trajs) != sorted(inp["obs_keys"]) \
+                or sorted(probs) != sorted(trajs) \
+                or any(np.asarray(t).shape != (20, 12, 2)
+                       or not np.isfinite(np.asarray(t)).all()
+                       for t in trajs.values()):
+            raise AssertionError(f"the {tier} pickles")
+        ade_fde = scores(eval_trajs_cli.main,
+                         [os.path.join(out["mf"], "test"), traj_p])
+        nll = scores(eval_prob_cli.main,
+                     [os.path.join(out["mf"], "test"), prob_p])
+        print("data-prep phase: %s minADE/minFDE (45-degree, top-down, "
+              "all) %s; NLL T=1..5 %s (one epoch of training: "
+              "information, not a gate)" % (tier, ade_fde, nll))
+        if len(ade_fde) != 6 or len(nll) != 5 \
+                or not np.isfinite(ade_fde + nll).all():
+            raise AssertionError(f"the {tier} scores are not finite")
+    return launches
+
+
+def write_sdd(root: str) -> dict:
+    """SDD's ``annotations.txt`` layout (track x1 y1 x2 y2 frame lost
+    occluded generated "label") for PREP_SDD_VIDEOS videos of about
+    PREP_SDD_LINES lines at 30 fps, the first portrait (rotated by the
+    change list), with the change list and split lists."""
+    rng = np.random.RandomState(13)
+    labels = ["Pedestrian", "Pedestrian", "Biker", "Car", "Skater", "Cart",
+              "Bus", "Pedestrian"]
+    ids, lines_total = [], 0
+    changes = []
+    for v in range(PREP_SDD_VIDEOS):
+        scene, video = ("bookstore", "deathCircle", "gates", "hyang")[v % 4], \
+            "video%d" % v
+        w, h = (1088, 1424) if v == 0 else (1424, 1088)
+        d = os.path.join(root, "annotations", scene, video)
+        os.makedirs(d)
+        tracks, frames = 10, PREP_SDD_LINES // 10
+        lines = []
+        for t in range(tracks):
+            x, y = rng.uniform(0, 0.85 * w), rng.uniform(0, 0.85 * h)
+            vx, vy = rng.uniform(-0.1, 0.1, 2)
+            for f in range(frames):
+                x1, y1 = int(x + vx * f), int(y + vy * f)
+                lines.append('%d %d %d %d %d %d %d %d 0 "%s"' % (
+                    t, x1, y1, x1 + 30, y1 + 60, f, int(rng.rand() < 0.02),
+                    int(rng.rand() < 0.1), labels[t % len(labels)]))
+        with open(os.path.join(d, "annotations.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        lines_total += len(lines)
+        ids.append("%s_%s" % (scene, video))
+        changes.append("%s_%s,%dx%d,%s" % (scene, video, w, h, h > w))
+    with open(os.path.join(root, "changes.lst"), "w") as f:
+        f.write("\n".join(changes) + "\n")
+    split = os.path.join(root, "sdd_split")
+    os.makedirs(split)
+    for name, part in (("train", ids[:-1]), ("test", ids[-1:])):
+        with open(os.path.join(split, name + ".lst"), "w") as f:
+            f.write("".join("%s.mp4\n" % i for i in part))
+    return {"anno": os.path.join(root, "annotations"), "split": split,
+            "changes": os.path.join(root, "changes.lst"), "ids": ids,
+            "lines": lines_total}
+
+
+def argo_cuboid(rng, cls: str, uuid: str, x: float, y: float) -> dict:
+    yaw = rng.uniform(-np.pi, np.pi)
+    return {"label_class": cls, "track_label_uuid": uuid,
+            "occlusion": int(rng.choice([0, 0, 0, 25, 100])),
+            "center": {"x": x, "y": y, "z": rng.uniform(-0.2, 0.5)},
+            "rotation": {"w": float(np.cos(yaw / 2)), "x": 0.0, "y": 0.0,
+                         "z": float(np.sin(yaw / 2))},
+            "length": rng.uniform(0.5, 5.0), "width": rng.uniform(0.5, 2.2),
+            "height": rng.uniform(1.2, 2.0)}
+
+
+def write_argoverse(root: str) -> int:
+    """PREP_ARGO_LOGS Argoverse tracking logs: per-sweep cuboid label
+    JSONs (pedestrians, vehicles, bicycles; some occluded or behind the
+    camera) and each log's ``vehicle_calibration_info.json``. Returns the
+    number of labels."""
+    rng = np.random.RandomState(14)
+    classes = ["PEDESTRIAN"] * 4 + ["VEHICLE", "BICYCLE", "LARGE_VEHICLE",
+                                    "ON_ROAD_OBSTACLE"]
+    n = 0
+    for log in range(PREP_ARGO_LOGS):
+        d = os.path.join(root, "argoverse", "log%d" % log)
+        os.makedirs(os.path.join(d, "per_sweep_annotations_amodal"))
+        with open(os.path.join(d, "vehicle_calibration_info.json"),
+                  "w") as f:
+            json.dump(PREP_ARGO_CAL, f)
+        start = rng.uniform([-20.0, -15.0], [60.0, 15.0],
+                            (PREP_ARGO_LABELS, 2))
+        vel = rng.uniform(-0.1, 0.1, (PREP_ARGO_LABELS, 2))
+        for s in range(PREP_ARGO_SWEEPS):
+            labels = [argo_cuboid(rng, classes[k % len(classes)],
+                                  "log%d-track%d" % (log, k),
+                                  *(start[k] + vel[k] * s))
+                      for k in range(PREP_ARGO_LABELS)]
+            n += len(labels)
+            with open(os.path.join(d, "per_sweep_annotations_amodal",
+                                   "tracked_object_labels_%d.json"
+                                   % (315969629019741000 + s * 100000000)),
+                      "w") as f:
+                json.dump(labels, f)
+    return n
+
+
+def write_moments(root: str) -> dict:
+    """PREP_GEN_MOMENTS moments (controls by ``traj_to_controls`` of 10
+    persons and 3 vehicles over 20 s at 2.5 fps, as `mvt-build-moment`
+    writes them) and two annotators' annotations of each."""
+    rng = np.random.RandomState(15)
+    moments_data = []
+    for m in range(PREP_GEN_MOMENTS):
+        rows = [(f, float(p), x + 0.02 * f * vx, y + 0.02 * f * vy, 0.5)
+                for p, (x, y, vx, vy) in enumerate(
+                    rng.uniform(-10, 10, (10, 4)))
+                for f in range(0, 600, 12)]
+        ped, _ = fp_controls.traj_to_controls(np.asarray(rows), -1, -1, 30.0)
+        veh_rows = [(f, 100.0 + p, x + 0.1 * f, y, 0.0)
+                    for p, (x, y) in enumerate(rng.uniform(-20, 20, (3, 2)))
+                    for f in range(0, 600, 30)]
+        veh, _ = fp_controls.traj_to_controls(np.asarray(veh_rows), -1, -1,
+                                              30.0, z_to=0.0)
+        moments_data.append({"scenename": "0400", "ped_controls": ped,
+                             "vehicle_controls": veh, "x_agents": [1]})
+    moment_file = os.path.join(root, "moments.json")
+    with open(moment_file, "w") as f:
+        json.dump(moments_data, f)
+    with open(os.path.join(root, "moments.lst"), "w") as f:
+        f.write(moment_file + "\n")
+    lines = []
+    for a, annotator in enumerate(("annotator0", "annotator1")):
+        annos = {"0400_%d_1_%d" % (m, a): [
+            [f, [0.0, 1.0, 0.0], 1.4, [0.01 * f, 0.02 * f, 0.5]]
+            for f in range(120, 480, 3)] for m in range(PREP_GEN_MOMENTS)}
+        path = os.path.join(root, "%s.json" % annotator)
+        with open(path, "w") as f:
+            json.dump(annos, f)
+        lines.append("%s %s" % (path, annotator))
+    with open(os.path.join(root, "annotations.lst"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return {"moments": os.path.join(root, "moments.lst"),
+            "annotations": os.path.join(root, "annotations.lst")}
+
+
+def prep_host_commands(tmp: str, card: str, anchor_traj: str) -> None:
+    """Phase 12 (b): the other host commands on generated inputs at the
+    sizes of their datasets, each timed and checked for its outputs.
+    ``anchor_traj``: (a)'s anchor TSVs, whose VIRAT videos
+    mvt-torch-combine-traj merges back per video."""
+    root = os.path.join(tmp, "prep_host")
+    os.makedirs(root)
+    sdd_in = write_sdd(root)
+    sdd_out = os.path.join(root, "sdd_prepared")
+    timed_main("mvt-torch-prepare-sdd (%d videos)" % PREP_SDD_VIDEOS, card,
+               prepare_cli.prepare_sdd_main,
+               [sdd_in["anno"], sdd_in["split"], sdd_in["changes"], sdd_out],
+               sdd_in["lines"], "annotation lines")
+    need_files("prepare-sdd", [
+        os.path.join(sdd_out, sub, split, vid + ext)
+        for split, vids in (("train", sdd_in["ids"][:-1]),
+                            ("test", sdd_in["ids"][-1:])) for vid in vids
+        for sub, ext in (("traj_2.5fps", ".txt"), ("anno_person_box", ".p"),
+                         ("anno_other_box", ".p"))])
+
+    videolst = os.path.join(root, "sdd_videos.lst")
+    with open(videolst, "w") as f:
+        f.write("".join("sdd/videos/%d/video.mov\n" % i
+                        for i in range(PREP_SDD_ALL)))
+    folds = os.path.join(root, "sdd_folds")
+    timed_main("mvt-torch-sdd-splits (5 folds)", card,
+               prepare_cli.sdd_splits_main, [videolst, folds], PREP_SDD_ALL,
+               "videos")
+    for i in range(1, 6):
+        names = []
+        for part in ("test", "val", "train"):
+            with open(os.path.join(folds, "fold_%d" % i,
+                                   part + ".lst")) as f:
+                names += f.read().split()
+        if sorted(names) != ["video.mov"] * PREP_SDD_ALL:
+            raise AssertionError(f"sdd-splits: fold {i} has {len(names)}")
+
+    n_labels = write_argoverse(root)
+    argo_out = os.path.join(root, "argoverse_prepared")
+    timed_main("mvt-torch-prepare-argoverse (%d logs)" % PREP_ARGO_LOGS,
+               card, prepare_cli.prepare_argoverse_main,
+               [os.path.join(root, "argoverse"), argo_out], n_labels,
+               "cuboid labels")
+    need_files("prepare-argoverse", [
+        os.path.join(argo_out, sub, "test", "log%d%s" % (log, ext))
+        for log in range(PREP_ARGO_LOGS)
+        for sub, ext in (("traj_2.5fps", ".txt"), ("anno_person_box", ".p"),
+                         ("anno_other_box", ".p"))])
+
+    h_path = os.path.join(root, "homography")
+    os.makedirs(h_path)
+    rng = np.random.RandomState(16)
+    for scene in PREP_ANCHOR_SCENES.values():
+        hm = np.eye(3) * 0.05 + rng.uniform(-1e-3, 1e-3, (3, 3))
+        hm[2, 2] = 1.0
+        with open(os.path.join(h_path, scene + ".txt"), "w") as f:
+            f.write("\n".join(",".join("%.9f" % v for v in row)
+                              for row in hm) + "\n")
+    videos = sorted(os.path.splitext(n)[0] for s in PREP_ANCHORS
+                    for n in os.listdir(os.path.join(anchor_traj, s)))
+    rows = sum(1 for s in PREP_ANCHORS
+               for n in os.listdir(os.path.join(anchor_traj, s))
+               for _ in open(os.path.join(anchor_traj, s, n)))
+    for flags in ([], ["--is_actev", "--h_path", h_path, "--target_w_path",
+                       os.path.join(root, "combined_world")]):
+        target = os.path.join(root, "combined_%d" % len(flags))
+        frames = target + "_frames.json"
+        timed_main("mvt-torch-combine-traj %s" % (
+            " ".join(flags[:1]) or "(pixel only)"), card,
+                   prepare_cli.combine_traj_main,
+                   [anchor_traj, target, frames, *flags], rows, "rows")
+        with open(frames) as f:
+            if sorted(json.load(f)) != videos:
+                raise AssertionError("combine-traj: frame file")
+        need_files("combine-traj", [
+            os.path.join(d, v + ".txt") for v in videos
+            for d in [target] + flags[-1:]])
+
+    moments_in = write_moments(root)
+    final = os.path.join(root, "final_moments.json")
+    timed_main("mvt-torch-gen-moments", card, prepare_cli.gen_moments_main,
+               [moments_in["moments"], moments_in["annotations"], final],
+               2 * PREP_GEN_MOMENTS, "annotations")
+    with open(final) as f:
+        if len(json.load(f)) != 2 * PREP_GEN_MOMENTS:
+            raise AssertionError("gen-moments: moments")
+
+
+def importable(package: str) -> bool:
+    try:
+        importlib.import_module(package)
+    except ImportError:
+        return False
+    return True
+
+
+def prep_gated_commands(tmp: str, card: str, obs_traj: str) -> dict:
+    """Phase 12 (c): where cv2 or yaml cannot be imported, the commands
+    that need it must stop with an ImportError naming it and the command,
+    having written nothing; where it can, they run on small generated
+    videos and YAMLs (``obs_traj``: (a)'s multi-future obs TSVs, whose
+    rendered videos are written) and their outputs are checked. Returns
+    {package: "missing" or "ran"}."""
+    root = os.path.join(tmp, "prep_gated")
+    os.makedirs(root)
+    seen = {}
+    for package, commands in PREP_GATED.items():
+        if importable(package):
+            seen[package] = "ran"
+            print("data-prep phase: %s %s imports here; its commands run"
+                  % (package, sys.modules[package].__version__))
+            {"cv2": gated_cv2, "yaml": gated_yaml}[package](root, card,
+                                                            obs_traj)
+            continue
+        seen[package] = "missing"
+        for command, main, nargs in commands:
+            where = os.path.join(root, command)
+            os.makedirs(where)
+            try:
+                main([os.path.join(where, "arg%d" % i)
+                      for i in range(nargs)])
+            except ImportError as e:
+                if e.name != package or command not in str(e) \
+                        or os.listdir(where):
+                    raise AssertionError(f"{command}: {e!r}") from e
+                print("data-prep phase: %s cannot be imported here; %s "
+                      "stopped with ImportError: %s" % (package, command, e))
+            else:
+                raise AssertionError(f"{command} ran without {package}")
+    print("data-prep phase: the gated commands %s (cv2: %s, yaml: %s)"
+          % ("ran" if set(seen.values()) == {"ran"} else
+             "stopped with their ImportErrors where their package is "
+             "missing", seen["cv2"], seen["yaml"]))
+    return seen
+
+
+def gated_cv2(root: str, card: str, obs_traj: str) -> None:
+    """The cv2 commands on small generated videos: frames of an SDD
+    video, a portrait video resized and rotated, the rendered videos of
+    (a)'s obs (rgb, and palette seg mp4s beside them) to frames and
+    scene class maps."""
+    import cv2
+
+    def video(path, n, w, h, frame):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                             (w, h))
+        for i in range(n):
+            vw.write(frame(i))
+        vw.release()
+    sdd = os.path.join(root, "sdd", "bookstore", "video0.mp4")
+    video(sdd, 30, 64, 48, lambda i: np.full((48, 64, 3), i * 8, np.uint8))
+    os.makedirs(os.path.join(root, "sdd_traj", "train"))
+    with open(os.path.join(root, "sdd_traj", "train", "video0.txt"),
+              "w") as f:
+        f.write("".join("%d\t1\t5.0\t5.0\n" % fr for fr in range(0, 30, 12)))
+    with open(os.path.join(root, "sdd_videos.lst"), "w") as f:
+        f.write(sdd + "\n")
+    timed_main("mvt-torch-sdd-frames", card, prepare_cli.sdd_frames_main,
+               [os.path.join(root, "sdd_videos.lst"),
+                os.path.join(root, "sdd_traj"),
+                os.path.join(root, "sdd_frames")], 3, "frames")
+    need_files("sdd-frames", [os.path.join(
+        root, "sdd_frames", "video0_F_%08d.jpg" % fr) for fr in (0, 12, 24)])
+    raw = os.path.join(root, "raw", "bookstore", "video0", "video.mov")
+    video(raw, 3, 48, 64, lambda i: np.full((64, 48, 3), i * 40, np.uint8))
+    with open(os.path.join(root, "raw.lst"), "w") as f:
+        f.write(raw + "\n")
+    timed_main("mvt-torch-resize-rotate-sdd", card,
+               prepare_cli.resize_rotate_sdd_main,
+               [os.path.join(root, "raw.lst"), os.path.join(root, "sdd_1080"),
+                os.path.join(root, "changes.lst")], 3, "frames")
+    with open(os.path.join(root, "changes.lst")) as f:
+        if f.read().strip() != "bookstore_video0,48x64,True":
+            raise AssertionError("resize-rotate-sdd: the change list")
+    videos = os.path.join(root, "render", "videos")
+    for name in os.listdir(os.path.join(obs_traj, "test")):
+        s, m, pid, cam = os.path.splitext(name)[0].split("_")
+        rendered = "%s_%s_%s_0_a0_%s" % (s, m, pid, cam)
+        video(os.path.join(videos, rendered + ".mp4"), PREP_MF_FRAMES, 128,
+              72, lambda i: np.full((72, 128, 3), i % 200, np.uint8))
+        video(os.path.join(videos, rendered + "_seg.mp4"), PREP_MF_FRAMES,
+              128, 72, lambda i: np.full((72, 128, 3), (60, 20, 220),
+                                         np.uint8))
+    bad = os.path.join(root, "bad_video.lst")
+    timed_main("mvt-torch-extract-frames-seg", card,
+               vis_annotation_cli.extract_frames_seg_main,
+               [obs_traj, videos, os.path.join(root, "frames"),
+                os.path.join(root, "seg"), bad, "--is_multifuture"],
+               8 * len(os.listdir(os.path.join(obs_traj, "test"))), "frames")
+    with open(bad) as f:
+        if f.read().strip():
+            raise AssertionError("extract-frames-seg: bad videos")
+    for name in os.listdir(os.path.join(obs_traj, "test")):
+        key = os.path.splitext(name)[0]
+        seg = np.load(os.path.join(root, "seg", key, key + "_F_00000000.npy"))
+        # the CARLA person color (BGR 60, 20, 220) -> ADE20k person, 13
+        if seg.shape != (36, 64) or not (seg == 13).all():
+            raise AssertionError(f"extract-frames-seg: {key} seg map")
+
+
+def gated_yaml(root: str, card: str, obs_traj: str) -> None:
+    """mvt-torch-get-vehicle-traj on VIRAT YAMLs of two videos
+    (``obs_traj`` is not read: the pedestrian TSVs are written here)."""
+    traj, anno, h_path = (os.path.join(root, d) for d in (
+        "ped_traj", "yaml", "h"))
+    for d in (traj, anno, h_path):
+        os.makedirs(d)
+    rng = np.random.RandomState(17)
+    names = ["VIRAT_S_040000_00_000000_000100",
+             "VIRAT_S_000201_00_000018_000380"]
+    for name in names:
+        with open(os.path.join(traj, name + ".txt"), "w") as f:
+            f.write("".join("%d\t1\t5.0\t5.0\n" % fr
+                            for fr in range(0, 600, 12)))
+        geom = ["- {meta: x}"]
+        for tid in (3, 8):
+            for fr in range(0, 600, 6):
+                x1, y1 = rng.uniform(0, 1000, 2)
+                geom.append("- {geom: {id1: %d, ts0: %d, g0: %.1f %.1f %.1f "
+                            "%.1f, src: truth}}" % (tid, fr, x1, y1 / 2,
+                                                    x1 + 80, y1 / 2 + 50))
+        with open(os.path.join(anno, name + ".geom.yml"), "w") as f:
+            f.write("\n".join(geom) + "\n")
+        with open(os.path.join(anno, name + ".types.yml"), "w") as f:
+            f.write("- {meta: x}\n- {types: {id1: 3, cset3: {Vehicle: 1.0}}}"
+                    "\n- {types: {id1: 8, cset3: {Person: 1.0}}}\n")
+    for scene in ("0400", "0002"):
+        with open(os.path.join(h_path, scene + ".txt"), "w") as f:
+            f.write("0.05,0,0\n0,0.05,0\n0,0,1\n")
+    out = os.path.join(root, "vehicle_traj")
+    timed_main("mvt-torch-get-vehicle-traj", card,
+               prepare_cli.get_vehicle_traj_main, [traj, anno, h_path, out],
+               2 * 2 * 100, "boxes")
+    for sub in ("pixel", "world"):
+        for name in names:
+            with open(os.path.join(out, sub, name + ".txt")) as f:
+                if len(f.read().splitlines()) != 50:
+                    raise AssertionError(f"get-vehicle-traj: {sub}/{name}")
+
+
+def data_prep_phase(dev, tmp: str, card: str) -> dict:
+    """Phase 12 (see the module docstring), in phase 6's temporary
+    directory (its scene id json). Returns the launches of K1, K3, K4 and
+    K5."""
+    launches = prep_chain(dev, tmp, card)
+    prep_host_commands(tmp, card, os.path.join(tmp, "prep", "anchor",
+                                               "traj_2.5fps"))
+    prep_gated_commands(tmp, card, os.path.join(tmp, "prep", "obs",
+                                                "traj_2.5fps"))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3342,6 +4080,9 @@ def main() -> int:
                                           smi.stdout.strip()).items():
             launches[k] += n
         elapsed("tensor-parallel phase")
+        for k, n in data_prep_phase(dev, tmp, smi.stdout.strip()).items():
+            launches[k] += n
+        elapsed("data-prep phase")
     simaug_run = simaug_phase(model, dev)
     for k in ("K1", "K4", "K5"):
         launches[k] += simaug_run[k]

@@ -279,11 +279,15 @@ def test_port_never_imports_jax():
     multiview step,
     one minADE scoring, one preprocessed split, and the read of the
     committed orbax checkpoint of the JAX package (equal to the leaves
-    made from its seed)."""
+    made from its seed). With cv2 and yaml unimportable too, the
+    data-preparation modules import,
+    mvt-torch-prepare-multifuture prepares a tiny bbox-JSON dataset, and
+    mvt-torch-sdd-frames and mvt-torch-get-vehicle-traj stop with an
+    ImportError naming cv2 and yaml."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for name in ('jax', 'jaxlib', 'multiverse_tpu', 'orbax',\n"
-        "             'tensorstore', 'zstandard'):\n"
+        "             'tensorstore', 'zstandard', 'cv2', 'yaml'):\n"
         "    sys.modules[name] = None      # any import of them raises\n"
         "import multiverse_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
@@ -331,7 +335,10 @@ def test_port_never_imports_jax():
         "             'cli.multifuture_eval_trajs',\n"
         "             'cli.multifuture_eval_trajs_prob', 'cli.evaluate_sdd',\n"
         "             'data.preprocess', 'data.vocab', 'cli.preprocess',\n"
-        "             'parallel', 'parallel.mesh'):\n"
+        "             'parallel', 'parallel.mesh', 'forking_paths.controls',\n"
+        "             'forking_paths.moments', 'forking_paths.prepared_data',\n"
+        "             'data.sdd', 'data.argoverse', 'cli.prepare_data',\n"
+        "             'cli.vis_annotation'):\n"
         "    assert 'multiverse_torch.' + name in names, name\n"
         "import dataclasses\n"
         "from multiverse_torch.data import multiview\n"
@@ -377,9 +384,43 @@ def test_port_never_imports_jax():
         "    for k in n.split('.'):\n"
         "        node = node[k]\n"
         "    assert np.array_equal(p.detach().numpy(), node), n\n"
+        "import json, pickle\n"
+        "from multiverse_torch.cli import prepare_data, vis_annotation\n"
+        "with tempfile.TemporaryDirectory() as tmp:\n"
+        "    os.makedirs(os.path.join(tmp, 'ds', 'bbox'))\n"
+        "    os.makedirs(os.path.join(tmp, 'split'))\n"
+        "    vids = ['zara01_0_1_%d_a_cam1' % d for d in range(2)]\n"
+        "    for d, name in enumerate(vids):\n"
+        "        with open(os.path.join(tmp, 'ds', 'bbox', name + '.json'),\n"
+        "                  'w') as f:\n"
+        "            json.dump([{'frame_id': fr, 'track_id': 1,\n"
+        "                        'class_name': 'Person', 'is_x_agent': 1,\n"
+        "                        'bbox': [50.0 + fr * d, 60.0, 8.0, 16.0]}\n"
+        "                       for fr in range(150)], f)\n"
+        "    with open(os.path.join(tmp, 'split', 'test.lst'), 'w') as f:\n"
+        "        f.write('\\n'.join(vids) + '\\n')\n"
+        "    prepare_data.prepare_multifuture_main([os.path.join(tmp, 'ds'),\n"
+        "        os.path.join(tmp, 'split'), os.path.join(tmp, 'obs'),\n"
+        "        os.path.join(tmp, 'mf')])\n"
+        "    with open(os.path.join(tmp, 'mf', 'test', 'zara01_0_1_cam1.p'),\n"
+        "              'rb') as f:\n"
+        "        assert sorted(pickle.load(f)) == vids\n"
+        "    for main, nargs, package in (\n"
+        "            (prepare_data.sdd_frames_main, 3, 'cv2'),\n"
+        "            (prepare_data.resize_rotate_sdd_main, 3, 'cv2'),\n"
+        "            (vis_annotation.extract_frames_seg_main, 5, 'cv2'),\n"
+        "            (prepare_data.get_vehicle_traj_main, 4, 'yaml')):\n"
+        "        try:\n"
+        "            main([os.path.join(tmp, 'x%d' % i)\n"
+        "                  for i in range(nargs)])\n"
+        "        except ImportError as e:\n"
+        "            assert e.name == package and 'mvt-torch-' in str(e), e\n"
+        "        else:\n"
+        "            raise AssertionError('no ImportError for ' + package)\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
         "             and m.startswith(('jax', 'multiverse_tpu', 'orbax',\n"
-        "                               'tensorstore', 'zstandard')))\n"
+        "                               'tensorstore', 'zstandard', 'cv2',\n"
+        "                               'yaml')))\n"
         "print('MODULES', len(names), 'JAX_MODULES', bad)\n"
         "sys.exit(1 if bad or len(names) < 20 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
