@@ -112,8 +112,8 @@
    20``, on cuda. Checks
    every loss is finite, K4 and K5 ran steps x 12 times, the evals' K1
    ran batches x 12 times, the last 10 steps' mean loss is below the
-   first step's, both checkpoint directories hold npz files and the best
-   one decodes a batch through ``run_multifuture_inference``. Then one
+   first step's, both checkpoint directories hold the port's orbax
+   steps and the best one decodes a batch through ``run_multifuture_inference``. Then one
    train step through the kernels and one through the plain versions on
    the same weights and batch (loss within 1e-2 relative, every
    gradient within 2e-2 relative L2); prints buffered steps/s and
@@ -134,8 +134,8 @@
    48 val examples; ``synthesize_multiview_prepro``), an eval/save every
    10 steps, on cuda: every loss finite, K4 and K5 each ran steps x 12
    x 2 times (the attack's tower pass and the outer one), the evals' K1
-   evals x val batches x 12 times, both checkpoint directories hold npz
-   files and the best one decodes a batch through
+   evals x val batches x 12 times, both checkpoint directories hold the
+   port's orbax steps and the best one decodes a batch through
    ``run_multifuture_inference``. Then one outer step on one augmented
    batch through K4/K5 and through their plain versions (loss within
    1e-2, every gradient within 2e-2 relative L2); the multiview step's
@@ -150,8 +150,9 @@
    at the engine's 160 rows on the served weights, then 32 requests from
    4 client threads (checked as in 4.). Then 5 more train steps on that
    step (K4/K5 counted) are saved by ``CheckpointManager.save`` as the
-   next step; requests are sent until the responses follow the new
-   weights, and the seconds from the file's rename to that response are
+   next step, an orbax step directory with the port's mark (phase 13
+   (b)); requests are sent until the responses follow the new
+   weights, and the seconds from the step's rename to that response are
    printed. That response must equal a direct forward on the new step's
    weights (loaded from its file) within 1e-3 and differ from the old
    step's by more than 1e-3 in its beam log-probs; then another 32
@@ -263,6 +264,29 @@
    nothing; where one can, its commands run on small generated inputs
    and their outputs are checked. Phase 12's K1, K3, K4 and K5 launches
    are added to the paths'.
+13. Checkpoint-writing phase (``train/orbax_writer.py`` over
+   ``train/ocdbt.py``'s writer; ``tools/tf_bundle.py``,
+   ``tools/tf_converter.py``, ``cli/convert_tf.py``), with no jax, orbax,
+   tensorstore or tensorflow. (a) The published model with both grid
+   scales (FIXTURE_GRIDS, 21,337,728 parameters of seeded random
+   weights) is saved by ``CheckpointManager.save`` as an orbax step and
+   read back by ``read_checkpoint_tree``: every leaf equal at tolerance
+   0; the write's and the read's host seconds and MB/s printed beside
+   the card's name and power limit. 16 trajectories are decoded (K = 20
+   diverse beams, ``beam_forward``) in bf16 (K1) and in int8a (K3) from
+   the weights read back and from the same weights before the write:
+   beam ids and log-probs equal bit for bit. (b) Phase 8's hot reload
+   followed a step the port wrote in this layout (checked there). (c)
+   The committed TF bundle ``tests/torch_fixtures/tf_ckpt`` (reference
+   names, Adadelta slots, global_step; ``tests/make_tf_fixture.py``) is
+   converted by ``mvt-torch-convert-tf``'s own ``main`` into a run
+   directory: every leaf of its ``save`` and ``best`` steps equal to the
+   leaves remade from the fixture's seed at tolerance 0; then
+   ``mvt-torch-test`` with ``--load_best`` in bf16 on a generated test
+   split (K1), and the best step, loaded as
+   ``mvt-torch-multifuture-inference`` loads it, decodes 16 trajectories
+   in int8a through K3, checked as in 3. Its K1 and K3 launches are
+   added to the paths'.
 
 Prints one JSON line describing the kernels, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero;
@@ -319,8 +343,8 @@ from multiverse_torch.cli import vis_annotation as vis_annotation_cli
 from multiverse_torch.config import MultiverseConfig
 from multiverse_torch import parallel
 from multiverse_torch.bridge import (
-    load_params_npz,
-    load_params_tree,
+    params_from_jax,
+    params_to_numpy_tree,
     prune_to_template,
 )
 from multiverse_torch.data.dataset import (
@@ -410,7 +434,8 @@ from multiverse_torch.train.checkpoints import (
     read_checkpoint_tree,
 )
 from multiverse_torch.train.ocdbt import OcdbtReader
-from multiverse_torch.train.orbax_reader import orbax_steps
+from multiverse_torch.train.orbax_reader import is_orbax_step, orbax_steps
+from multiverse_torch.train.orbax_writer import written_by_port
 
 TOL = 2e-2
 # least share of the q8 kernels' int8 gate inputs (h2_q) equal to the
@@ -2101,18 +2126,22 @@ def train_further(dev, tmp: str, save_dir: str, launches: dict):
                                  f"for {RELOAD_STEPS} steps")
         launches[k] += fn.launches
     renamed = []
-    replace = os.replace
+    rename = os.rename
 
-    def timed_replace(src, dst):
-        replace(src, dst)
+    def timed_rename(src, dst):
+        rename(src, dst)
         renamed.append(time.perf_counter())
 
     new_step = latest + RELOAD_STEPS
-    with mock.patch.object(os, "replace", timed_replace):
+    with mock.patch.object(os, "rename", timed_rename):
         path = CheckpointManager(os.path.dirname(save_dir)).save(new_step,
                                                                  model)
+    if not (is_orbax_step(path) and written_by_port(path)):
+        raise AssertionError(f"lifecycle: {path} is not an orbax step of "
+                             "the port")
     print("lifecycle: %d more train steps on step %d (last loss %.4f) "
-          "saved as %s" % (RELOAD_STEPS, latest, loss, path))
+          "saved as %s, an orbax step of the port" % (RELOAD_STEPS, latest,
+                                                       loss, path))
     return new_step, path, renamed[0]
 
 
@@ -2278,7 +2307,7 @@ def dp_rank(mesh, spec: dict) -> dict:
         obs, pred_lens = dp_requests(scfg)
         out["before"] = drive_engine(engine, obs, pred_lens)
         out["stats_before"] = engine.stats.snapshot()
-        engine.update_params(load_params_tree(spec["serve_new"]))
+        engine.update_params(read_checkpoint_tree(spec["serve_new"]))
         engine.stats.reset()
         out["after"] = drive_engine(engine, obs, pred_lens)
         out["stats_after"] = engine.stats.snapshot()
@@ -3020,16 +3049,21 @@ def simaug_phase(model, dev) -> dict:
 
 def best_checkpoint_decodes(what: str, run: str, best_step: int, cfg,
                             dev) -> Multiverse:
-    """Both checkpoint directories of a training run hold npz files,
-    and the best checkpoint decodes 16 trajectories through the offline
-    path (K=20 diverse beams). Returns the best checkpoint's model."""
+    """Both checkpoint directories of a training run hold the port's
+    orbax steps, and the best checkpoint decodes 16 trajectories through
+    the offline path (K=20 diverse beams). Returns the best checkpoint's
+    model."""
     ckpts = {sub: list_steps(os.path.join(run, sub))
              for sub in ("save", "best")}
     print("%s: checkpoints %s, best step %d" % (
         what, {k: [s for s, _ in v] for k, v in ckpts.items()}, best_step))
     if not ckpts["save"] or not ckpts["best"]:
         raise AssertionError("%s: a checkpoint directory is empty" % what)
-    model = load_params_npz(ckpts["best"][-1][1])
+    if not all(is_orbax_step(p) and written_by_port(p)
+               for steps in ckpts.values() for _, p in steps):
+        raise AssertionError("%s: a saved step is not an orbax step of the "
+                             "port" % what)
+    model = params_from_jax(read_checkpoint_tree(ckpts["best"][-1][1]))
     beam_cfg = cfg.replace(use_beam_search=True, beam_size=20,
                            diverse_beam=True, diverse_gamma=0.01,
                            fix_num_timestep=1)
@@ -3107,25 +3141,18 @@ def jax_checkpoint_phase(dev, tmp: str, card: str) -> dict:
     t0 = time.perf_counter()
     tree = read_checkpoint_tree(src_save)
     read_s = time.perf_counter() - t0
-    got = dict(zip(_flat_names(tree), _flat_leaves(tree)))
     full = Multiverse.init(MultiverseConfig(
         use_gnn=True, use_scene_enc=True, use_grids=FIXTURE_GRIDS).validate())
     want_tree = fixture_tree(full)
-    want = dict(zip(_flat_names(want_tree), _flat_leaves(want_tree)))
-    if sorted(got) != sorted(want):
-        raise AssertionError("jax checkpoint: the names read differ from "
-                             "the published (1,1) model's")
-    unequal = [k for k in want if got[k].shape != want[k].shape
-               or not np.array_equal(got[k], want[k])]
-    if unequal:
-        raise AssertionError(f"jax checkpoint: {unequal} differ from the "
-                             "leaves made from the fixture's seed")
-    f32 = 4 * sum(v.size for v in got.values())
+    leaves = _equal_trees("jax checkpoint: the step read against the "
+                          "leaves made from the fixture's seed", tree,
+                          want_tree)
+    f32 = 4 * sum(v.size for v in _flat_leaves(tree))
     print("jax checkpoint: step %d at the published widths (%d leaves, %d "
           "parameters) equal to the leaves made from its seed at tolerance "
           "0; host read %.4f s: %.1f MB/s of files (%d bytes, mostly "
           "codebook frames), %.1f MB/s of f32 (%s)"
-          % (step, len(got), f32 // 4, read_s, disk / read_s / 1e6, disk,
+          % (step, leaves, f32 // 4, read_s, disk / read_s / 1e6, disk,
              f32 / read_s / 1e6, card))
     # the decoder alone on the frame of a leaf of plain random weights
     # (Huffman-coded literals), as a trained checkpoint's frames are
@@ -3213,6 +3240,144 @@ def jax_checkpoint_phase(dev, tmp: str, card: str) -> dict:
     omodel = inference_cli.load_model(save_dir, cfg)
     inputs = inference.synthesize_multifuture_inputs(cfg, 16, seed=5)
     launches["K1"] += offline_run(omodel, cfg, inputs, dev, "none")
+    return launches
+
+
+# ------------------------------------------------------ checkpoint writing
+
+# the committed TF1 bundle (tests/make_tf_fixture.py writes it): the
+# reference's names at these widths, use_grids 1,0, scene encoder and
+# GNN on, leaves from fixture_leaf; the flags convert it
+TF_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "torch_fixtures", "tf_ckpt")
+TF_FIXTURE_WIDTHS = {"emb_size": 16, "enc_hidden_size": 32,
+                     "dec_hidden_size": 32, "scene_conv_dim": 16}
+TF_FIXTURE_FLAGS = ["--emb_size", "16", "--enc_hidden_size", "32",
+                    "--dec_hidden_size", "32", "--scene_conv_dim", "16",
+                    "--use_grids", "1,0", "--use_scene_enc", "--use_gnn"]
+
+
+def _equal_trees(what: str, got: dict, want: dict) -> int:
+    """Raise unless two nested dicts of arrays hold the same names and
+    equal leaves (tolerance 0). Returns the leaf count."""
+    got = dict(zip(_flat_names(got), _flat_leaves(got)))
+    want = dict(zip(_flat_names(want), _flat_leaves(want)))
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: the names differ")
+    unequal = [k for k in want if got[k].shape != want[k].shape
+               or not np.array_equal(got[k], want[k])]
+    if unequal:
+        raise AssertionError(f"{what}: {unequal} differ")
+    return len(want)
+
+
+def decode_beams(model, cfg, inputs, dev, tier: str):
+    """Beam ids and log-probs of one batch of ``inputs`` through the
+    tier's kernel, and its launches."""
+    T = int(inputs.pred_lengths.max())
+    batch = batch_to_device(inference.make_batch(
+        inputs, np.arange(len(inputs.traj_ids)), cfg), dev)
+    reset_launches()
+    with torch.inference_mode():
+        beam, _ = inference.beam_forward(
+            model, batch, cfg.replace(decode_quant=tier), T_pred=T)
+    torch.cuda.synchronize()
+    launches = tier_launches(tier)
+    if launches != T:
+        raise AssertionError(f"checkpoint writing: the {tier} decode ran "
+                             f"{launches} kernel steps, expected {T}")
+    return beam.ids.cpu(), beam.logprobs.cpu(), launches
+
+
+def checkpoint_writing_phase(dev, tmp: str, card: str) -> dict:
+    """Phase 13 (see the module docstring). Returns the main-path
+    launches of K1 and K3."""
+    launches = {"K1": 0, "K3": 0}
+    # (a) the published model, both scales, written and read back
+    full = Multiverse.init(MultiverseConfig(
+        use_gnn=True, use_scene_enc=True, use_grids=FIXTURE_GRIDS).validate(),
+        seed=13)
+    want = params_to_numpy_tree(full)
+    n = sum(v.size for v in _flat_leaves(want))
+    run = os.path.join(tmp, "written", "multiverse", "00")
+    t0 = time.perf_counter()
+    path = CheckpointManager(run).save(13, full)
+    write_s = time.perf_counter() - t0
+    disk = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+    t0 = time.perf_counter()
+    tree = read_checkpoint_tree(os.path.join(run, "save"))
+    read_s = time.perf_counter() - t0
+    leaves = _equal_trees("checkpoint writing: the step read back", tree,
+                          want)
+    print("checkpoint writing: %d parameters (%d leaves, published widths, "
+          "use_grids 1,1) saved as orbax step %s: %d bytes on disk; host "
+          "write %.4f s (%.1f MB/s of f32), read back %.4f s (%.1f MB/s of "
+          "f32), equal at tolerance 0 (%s)"
+          % (n, leaves, path, disk, write_s, 4 * n / write_s / 1e6, read_s,
+             4 * n / read_s / 1e6, card))
+    cfg = flagship_config()
+    before = prune_to_template(full, Multiverse.init(cfg)).to(dev)
+    after = load_checkpoint(path, Multiverse.init(cfg)).to(dev)
+    inputs = inference.synthesize_multifuture_inputs(cfg, 16, seed=13)
+    for tier, k in (("none", "K1"), ("int8a", "K3")):
+        ids_b, lp_b, _ = decode_beams(before, cfg, inputs, dev, tier)
+        ids_a, lp_a, ran = decode_beams(after, cfg, inputs, dev, tier)
+        launches[k] += ran
+        if not (torch.equal(ids_a, ids_b) and torch.equal(lp_a, lp_b)):
+            raise AssertionError(
+                f"checkpoint writing: the {tier} decode of the weights read "
+                "back differs from the decode before the write")
+        print("checkpoint writing: %s (%s, %d launches) on the weights "
+              "read back: beam ids and log-probs of 16 trajectories equal "
+              "to the decode before the write, bit for bit"
+              % (k, "bf16" if tier == "none" else tier, ran))
+
+    # (c) the committed TF bundle through mvt-torch-convert-tf
+    from multiverse_torch.cli import convert_tf
+
+    outbase = os.path.join(tmp, "tf_out")
+    t0 = time.perf_counter()
+    convert_tf.main([TF_FIXTURE, outbase, "tfconv", "0", *TF_FIXTURE_FLAGS])
+    convert_s = time.perf_counter() - t0
+    tf_cfg = flagship_config(**TF_FIXTURE_WIDTHS)
+    tf_want = fixture_tree(Multiverse.init(tf_cfg))
+    conv_run = os.path.join(outbase, "tfconv", "00")
+    for sub in ("save", "best"):
+        steps = list_steps(os.path.join(conv_run, sub))
+        if [s for s, _ in steps] != [0]:
+            raise AssertionError(f"tf conversion: {sub} holds {steps}")
+        leaves = _equal_trees(f"tf conversion: {sub} step 0",
+                              read_checkpoint_tree(steps[0][1]), tf_want)
+    print("tf conversion: %s (%d bytes) converted by mvt-torch-convert-tf in "
+          "%.3f s (host); %d leaves of save and best step 0 equal to the "
+          "leaves remade from the fixture's seed at tolerance 0"
+          % (TF_FIXTURE, sum(os.path.getsize(os.path.join(TF_FIXTURE, f))
+                             for f in os.listdir(TF_FIXTURE)),
+             convert_s, leaves))
+    prepro = synthesize_prepro(os.path.join(tmp, "tf_prepro"), tf_cfg,
+                               n_train=16, n_val=32, seed=13)
+    shutil.copy(os.path.join(prepro, "data_val.npz"),
+                os.path.join(prepro, "data_test.npz"))
+    reset_launches()
+    perf = test_cli.main([prepro, outbase, "tfconv", "--load_best",
+                          "--batch_size", "16", "--compute_dtype",
+                          "bfloat16", "--device", "cuda:0",
+                          *TF_FIXTURE_FLAGS])
+    torch.cuda.synchronize()
+    launches["K1"] += decode_step_gathered.launches
+    if not decode_step_gathered.launches \
+            or not np.isfinite(perf["grid0_traj_ade"]):
+        raise AssertionError(f"tf conversion: mvt-torch-test gave {perf}, "
+                             f"K1 {decode_step_gathered.launches}")
+    print("tf conversion: mvt-torch-test --load_best on the converted run "
+          "(bf16, 32 test examples): grid0_traj_ade %.4f, K1 %d"
+          % (perf["grid0_traj_ade"], decode_step_gathered.launches))
+    model = inference_cli.load_model(os.path.join(conv_run, "best"), tf_cfg)
+    launches["K3"] += offline_run(
+        model, tf_cfg, inference.synthesize_multifuture_inputs(tf_cfg, 16,
+                                                               seed=14),
+        dev, "int8a")
     return launches
 
 
@@ -4091,6 +4256,11 @@ def main() -> int:
         for k, n in jax_checkpoint_phase(dev, tmp, smi.stdout.strip()).items():
             launches[k] += n
     elapsed("jax-checkpoint phase")
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, n in checkpoint_writing_phase(dev, tmp,
+                                             smi.stdout.strip()).items():
+            launches[k] += n
+    elapsed("checkpoint-writing phase")
     for k, fn in PATHLESS.items():
         launches[k] = fn.launches
     print("main path launches of K6, K8, K9 (no path of the port or of the "

@@ -22,10 +22,12 @@ Layout (module names follow ``multiverse_tpu``):
     inference.py   beam_forward, greedy_forward, the offline run
     serving/       the serving engine and its HTTP front ends
     bridge.py      weights to and from the JAX parameter tree and npz
+    tools/         the TF1 tensor-bundle reader and checkpoint converter
     cli/           mvt-torch-train, mvt-torch-train-simaug,
                    mvt-torch-test, mvt-torch-multifuture-inference,
                    mvt-torch-serve, mvt-torch-eval-trajs,
-                   mvt-torch-eval-prob, mvt-torch-evaluate-sdd
+                   mvt-torch-eval-prob, mvt-torch-evaluate-sdd,
+                   mvt-torch-convert-tf
 """
 
 __version__ = "0.1.0"

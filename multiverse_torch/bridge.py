@@ -11,7 +11,9 @@
   the JAX layout, as numpy);
 * :func:`save_params_npz` / :func:`load_params_npz` keep a flat npz
   whose keys are the tree paths joined with "/"
-  (``scales/0/dec_class/kernel``), which is how the CLI takes weights;
+  (``scales/0/dec_class/kernel``), the format of the port's earlier
+  checkpoints, which every loader still takes (new ones are orbax
+  steps, ``train/orbax_writer.py``);
 * :func:`prune_to_template` keeps, of a checkpoint's parameters, the
   names a configuration needs, as the JAX package restores a checkpoint
   that holds more grid scales than the model uses;

@@ -3,8 +3,9 @@
 Serves HTTP predictions through the dynamic-batching engine
 (``multiverse_torch/serving/engine.py``) with the flags of the JAX
 package's ``mvt-serve`` and its load paths: ``--random_init``,
-``--load_from`` (an npz checkpoint, an orbax step directory of the JAX
-package, or a ``save``/``best`` directory of either), or else the run
+``--load_from`` (an orbax step directory, the port's or the JAX
+package's, an npz checkpoint of the port's earlier runs, or a
+``save``/``best`` directory of either), or else the run
 directory ``outbasepath/modelname/runId`` (its ``save`` steps, or
 ``best`` with ``--load_best``), written by the port or the JAX
 package. The weights are pruned to the
@@ -18,8 +19,7 @@ JAX trainer's orbax steps as ``mvt-serve`` does. Differences:
   (0: every visible GPU) shards each served batch over N devices, one
   process a device (``multiverse_torch/parallel``), and fails where
   fewer are visible;
-* the port saves npz steps (``train/checkpoints.py``); it reads those
-  and the JAX package's orbax steps alike.
+* it reads the port's earlier npz steps too (``train/checkpoints.py``).
 
     mvt-torch-serve out model --use_gnn --use_scene_enc \\
         --use_beam_search --beam_size 20 --diverse_beam --reload_poll_s 30

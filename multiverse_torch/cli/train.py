@@ -18,14 +18,17 @@ and ``val_perf.json``. Differences:
   one process with the plain PyTorch versions of the kernels, or
   ``--model_parallel`` gloo ranks on the host, the counterpart of the
   JAX package's virtual CPU devices);
-* checkpoints are the port's npz files (``train/checkpoints.py``),
-  the whole weights however the ranks split them,
-  which ``mvt-torch-test``, ``mvt-torch-serve`` and
+* checkpoints are orbax steps in the JAX package's layout
+  (``train/checkpoints.py``), the whole weights however the ranks split
+  them, which ``mvt-torch-test``, ``mvt-torch-serve`` and
   ``mvt-torch-multifuture-inference`` read from the run directory or as
-  a file; ``--load``/``--load_best``/``--load_from`` read them and the
-  JAX package's orbax steps alike (a checkpoint with more grid scales
-  pruned to the model); on a JAX run directory, new saves continue
-  above its latest orbax step, and none of its steps is deleted;
+  a step, and the JAX package's ``mvt-test``, ``mvt-serve`` and
+  ``mvt-train --load`` read as their own;
+  ``--load``/``--load_best``/``--load_from`` read them, the JAX
+  package's steps and the port's earlier npz files alike (a checkpoint
+  with more grid scales pruned to the model); on a JAX run directory,
+  new saves continue above its latest step, and none of its steps is
+  deleted;
 * ``--profile`` writes a ``torch.profiler`` trace.
 
 On the card with ``--compute_dtype bfloat16`` the class decoder's graph

@@ -16,10 +16,12 @@ As in ``mvt-torch-train``:
   the JAX trainer's does over every chip (``make_mesh_for_batch`` and
   ``make_sharded_eval_step``): rank 0 trains, and at each eval sends
   the weights to the other ranks, which wait for them between evals;
-* checkpoints are the port's npz files (``train/checkpoints.py``);
-  ``--load``/``--load_best``/``--load_from`` read them and the JAX
-  package's orbax steps alike, and new saves continue above a JAX run
-  directory's latest step without deleting any of its steps.
+* checkpoints are orbax steps in the JAX package's layout
+  (``train/checkpoints.py``), which its commands read as their own;
+  ``--load``/``--load_best``/``--load_from`` read them, the JAX
+  package's steps and the port's earlier npz files alike, and new saves
+  continue above a JAX run directory's latest step without deleting
+  any of its steps.
 
 On the card with ``--compute_dtype bfloat16`` every tower pass (the
 attack's and the outer step's) runs the class decoder's graph attention

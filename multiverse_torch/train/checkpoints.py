@@ -3,36 +3,46 @@
 The port's counterpart of ``multiverse_tpu/train/checkpoints.py``
 (reference: code/pred_utils.py:98-107 for outbase/model/runId/{save,
 best}, code/train.py:170-171 for the twin savers keeping the latest 5).
-A save holds the parameters only, as ``mvt-train`` saves them: one flat
-npz per step (``step_00000300.npz``) in ``bridge.save_params_npz``'s
-format, written under a temporary name and renamed, so a reader never
-sees half a file. Every command of the port reads them the same way
-(:func:`load_checkpoint`): an npz file, a step directory of the JAX
-package's orbax checkpoints (``<save>/<step>``, read by
-:mod:`.orbax_reader`), or the latest step of a ``save``/``best``
-directory that holds either, pruned to the configuration's parameters
-as the JAX package restores a checkpoint that holds more grid scales
-than the model uses. ``mvt-torch-serve --reload_poll_s`` polls a
-``save``/``best`` directory for new steps (:func:`list_steps`). The
-port never deletes an orbax step.
+A save holds the parameters only, as ``mvt-train`` saves them, in the
+JAX package's own layout: one orbax step directory per step
+(``<save>/300/``), written by :mod:`.orbax_writer` under a temporary
+name and renamed, so a reader never sees half a step, and read by the
+JAX package's ``CheckpointManager``, ``restore_params_from`` and
+``poll_latest_step`` as its own. Every command of the port reads the
+same way (:func:`load_checkpoint`): an orbax step directory (the port's
+or the JAX package's, read by :mod:`.orbax_reader`), an npz file of the
+port's earlier runs (``step_00000300.npz``, ``bridge.save_params_npz``'s
+format), or the latest step of a ``save``/``best`` directory that holds
+either, pruned to the configuration's parameters as the JAX package
+restores a checkpoint that holds more grid scales than the model uses.
+``mvt-torch-serve --reload_poll_s`` polls a ``save``/``best`` directory
+for new steps (:func:`list_steps`). ``max_to_keep`` counts and removes
+only the port's own steps: its npz files and the orbax steps that carry
+its mark (``orbax_writer.written_by_port``); a step of the JAX package
+is never removed.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import shutil
 from typing import List, Optional, Tuple
 
 from multiverse_torch.bridge import (
     load_params_tree,
+    params_to_numpy_tree,
     prune_to_template,
-    save_params_npz,
 )
 from multiverse_torch.models import Multiverse
 from multiverse_torch.train.orbax_reader import (
     is_orbax_step,
     orbax_steps,
     read_params_tree,
+)
+from multiverse_torch.train.orbax_writer import (
+    write_params_step,
+    written_by_port,
 )
 
 _STEP = re.compile(r"^step_(\d+)\.npz$")
@@ -52,10 +62,25 @@ def _npz_steps(directory: str) -> List[Tuple[int, str]]:
     return sorted(found)
 
 
+def _own_steps(directory: str) -> List[Tuple[int, str]]:
+    """(step, path) of the port's own steps in ``directory``, by step:
+    its npz files and the orbax steps that carry its mark."""
+    own = _npz_steps(directory) + [
+        (s, p) for s, p in orbax_steps(directory) if written_by_port(p)]
+    return sorted(own)
+
+
+def _remove_step(path: str) -> None:
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    else:
+        os.remove(path)
+
+
 def list_steps(directory: str) -> List[Tuple[int, str]]:
     """(step, path) of every checkpoint in ``directory``, by step, read
-    afresh on every call: the port's npz steps and the JAX package's
-    finished orbax steps (one in flight is not listed). Raises
+    afresh on every call: npz steps and finished orbax steps, the
+    port's or the JAX package's (one in flight is not listed). Raises
     ``ValueError`` where one step number is held by both."""
     npz = dict(_npz_steps(directory))
     found = dict(orbax_steps(directory))
@@ -114,14 +139,24 @@ class CheckpointManager:
             os.makedirs(self.best_dir, exist_ok=True)
 
     def save(self, step: int, model, best: bool = False) -> str:
+        """Write ``model``'s parameters as orbax step ``step`` of
+        ``save`` (``best``), in place of a step of that number the port
+        wrote before; then remove the port's own steps but the latest
+        ``max_to_keep``. Returns the step's directory. Raises
+        ``ValueError`` where a step of that number is the JAX
+        package's."""
         directory = self.best_dir if best else self.save_dir
-        path = os.path.join(directory, "step_%08d.npz" % step)
-        tmp = path + ".tmp.npz"
-        save_params_npz(model, tmp)
-        os.replace(tmp, path)   # a reader never sees half a file
+        held = dict(list_steps(directory)).get(step)
+        if held is not None:
+            if held not in dict(_own_steps(directory)).values():
+                raise ValueError("step %d is already held by %s, which the "
+                                 "port did not write" % (step, held))
+            _remove_step(held)
+        path = write_params_step(directory, step,
+                                 params_to_numpy_tree(model))
         # only the port's own steps count and go: a JAX step stays
-        for _, old in _npz_steps(directory)[:-self.max_to_keep]:
-            os.remove(old)
+        for _, old in _own_steps(directory)[:-self.max_to_keep]:
+            _remove_step(old)
         return path
 
     def latest_step(self, best: bool = False) -> Optional[int]:

@@ -1,8 +1,8 @@
-"""Read-only access to an OCDBT key-value store in a local directory.
+"""OCDBT key-value stores in a local directory, read and written.
 
 OCDBT is the B-tree database that tensorstore keeps under an orbax
 checkpoint (``<step>/default/manifest.ocdbt`` and the files it points
-into). This module reads it with no tensorstore: the manifest, the
+into). :class:`OcdbtReader` reads one with no tensorstore: the manifest, the
 latest version in its version list (the manifest always holds the
 newest versions inline; version-tree nodes hold only older ones), and
 that version's B-tree, whose leaves hold each key's value inline or as
@@ -13,14 +13,21 @@ file's length as a little-endian u64, a format version and a
 compression method (varints; 1 = zstd), the body, and a crc32c of all
 that precedes it. A bad magic, length or crc, or a truncated file,
 raises ``ValueError`` naming the file.
+
+:func:`write_database` writes a new database of one version from a
+``{key: value}`` mapping, uncompressed (method 0), framed as the reader
+checks: one data file ``d/<32 hex>`` holding the values longer than
+``max_inline_value_bytes`` and the B-tree nodes, and the manifest.
 """
 
 from __future__ import annotations
 
 import os
 import struct
+import time
+import uuid
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 from multiverse_torch.native import zstd
 
@@ -324,3 +331,183 @@ class OcdbtReader:
         if isinstance(value, bytes):
             return value
         return self._read_range(value.path, value.offset, value.length)
+
+
+# ------------------------------------------------------------------ writer
+
+# orbax's configuration of the databases it writes (a manifest of the
+# JAX package's checkpoints reads: max_inline_value_bytes 1024,
+# max_decoded_node_bytes 100000000, version_tree_arity_log2 4)
+MAX_INLINE_VALUE_BYTES = 1024
+MAX_DECODED_NODE_BYTES = 100_000_000
+VERSION_TREE_ARITY_LOG2 = 4
+
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while v >= 0x80:
+        out.append((v & 0x7F) | 0x80)
+        v >>= 7
+    out.append(v)
+    return bytes(out)
+
+
+def _varints(vs) -> bytes:
+    return b"".join(_varint(v) for v in vs)
+
+
+def _frame(magic: int, body: bytes) -> bytes:
+    """``body`` framed as :meth:`OcdbtReader._decode` reads it: format
+    version 0, compression method 0, crc32c of all that precedes it."""
+    head = _varint(0) + _varint(0)
+    length = 4 + 8 + len(head) + len(body) + 4
+    data = struct.pack(">I", magic) + struct.pack("<Q", length) + head + body
+    return data + struct.pack("<I", crc32c(data))
+
+
+def _file_table(path: Optional[str]) -> bytes:
+    """A data file table naming ``path`` (its base path empty), or no
+    file."""
+    if path is None:
+        return _varint(0)
+    name = path.encode()
+    return _varint(1) + _varint(len(name)) + _varint(0) + name
+
+
+def _key_columns(keys: List[bytes], common: Optional[List[int]]) -> bytes:
+    """Keys prefix-compressed against the previous one: the shared
+    lengths, the suffix lengths, (interior nodes) the subtree common
+    prefix lengths, then the suffixes."""
+    shared, suffixes = [], []
+    for prev, key in zip([b""] + keys[:-1], keys):
+        n = 0
+        while n < min(len(prev), len(key)) and prev[n] == key[n]:
+            n += 1
+        shared.append(n)
+        suffixes.append(key[n:])
+    return (_varints(shared[1:]) + _varints(len(s) for s in suffixes)
+            + (_varints(common) if common is not None else b"")
+            + b"".join(suffixes))
+
+
+def _leaf_node(entries, path: str) -> bytes:
+    """A height-0 node of ``entries``: (key, inline bytes or (offset,
+    length) into ``path``)."""
+    keys = [k for k, _ in entries]
+    indirect = [v for _, v in entries if isinstance(v, tuple)]
+    lengths = [v[1] if isinstance(v, tuple) else len(v) for _, v in entries]
+    kinds = bytes(int(isinstance(v, tuple)) for _, v in entries)
+    body = (bytes([0]) + _file_table(path if indirect else None)
+            + _varint(len(entries)) + _key_columns(keys, None)
+            + _varints(lengths) + kinds
+            + _varints(0 for _ in indirect) + _varints(o for o, _ in indirect)
+            + b"".join(v for _, v in entries if isinstance(v, bytes)))
+    return _frame(BTREE_MAGIC, body)
+
+
+def _interior_node(height: int, children, path: str) -> bytes:
+    """A node of ``height`` over ``children``: (first key, offset,
+    length, num_keys, num_tree_bytes, num_indirect_bytes), each child's
+    keys stored whole (a subtree common prefix of 0)."""
+    n = len(children)
+    body = (bytes([height]) + _file_table(path) + _varint(n)
+            + _key_columns([c[0] for c in children], [0] * n)
+            + _varints([0] * n) + _varints(c[1] for c in children)
+            + _varints(c[2] for c in children)
+            + b"".join(_varints(c[i] for c in children) for i in (3, 4, 5)))
+    return _frame(BTREE_MAGIC, body)
+
+
+def _split(items: list, size, limit: int) -> List[list]:
+    """``items`` in runs of consecutive items whose ``size`` sum stays
+    within ``limit`` (an item alone may exceed it; the node is then
+    checked when made)."""
+    runs, run, total = [], [], 0
+    for item in items:
+        s = size(item)
+        if run and total + s > limit:
+            runs.append(run)
+            run, total = [], 0
+        run.append(item)
+        total += s
+    if run:
+        runs.append(run)
+    return runs
+
+
+def write_database(
+        root: str, entries: Mapping[bytes, bytes],
+        max_inline_value_bytes: int = MAX_INLINE_VALUE_BYTES,
+        max_decoded_node_bytes: int = MAX_DECODED_NODE_BYTES) -> None:
+    """Write a new OCDBT database of ``entries`` into the directory
+    ``root`` (made if missing; it must hold no database yet): one
+    version, generation 1, whose B-tree's nodes each decode to at most
+    ``max_decoded_node_bytes``. The exact inverse of
+    :class:`OcdbtReader`; tensorstore's ``ocdbt`` driver reads it too."""
+    if not entries:
+        raise ValueError("%s: an OCDBT database of no keys" % root)
+    os.makedirs(os.path.join(root, "d"), exist_ok=True)
+    manifest = os.path.join(root, "manifest.ocdbt")
+    if os.path.exists(manifest):
+        raise ValueError("%s: a database is already there" % root)
+    path = "d/" + uuid.uuid4().hex
+    keys = sorted(entries)
+    data = bytearray()
+    leaf_entries, indirect_bytes = [], 0
+    for key in keys:
+        value = bytes(entries[key])
+        if len(value) > max_inline_value_bytes:
+            leaf_entries.append((key, (len(data), len(value))))
+            data += value
+            indirect_bytes += len(value)
+        else:
+            leaf_entries.append((key, value))
+    # an entry's share of a leaf: its key and value, at most 5 varints of
+    # 10 bytes and its kind; of an interior node: its key and 8 varints;
+    # a node's own share: its framing and file table
+    overhead = 64 + len(path)
+
+    def entry_size(e):
+        return len(e[0]) + 51 + (len(e[1]) if isinstance(e[1], bytes) else 0)
+
+    level = []      # (first key, offset, length, keys, tree, indirect)
+    for run in _split(leaf_entries, entry_size,
+                      max_decoded_node_bytes - overhead):
+        node = _leaf_node(run, path)
+        level.append((run[0][0], len(data), len(node), len(run), len(node),
+                      sum(v[1] for _, v in run if isinstance(v, tuple))))
+        if len(node) > max_decoded_node_bytes:
+            raise ValueError("%s: key %r makes a node of %d bytes, more "
+                             "than %d" % (root, run[0][0], len(node),
+                                          max_decoded_node_bytes))
+        data += node
+    height = 0
+    while len(level) > 1:
+        height += 1
+        parents = []
+        for run in _split(level, lambda c: len(c[0]) + 80,
+                          max_decoded_node_bytes - overhead):
+            node = _interior_node(height, run, path)
+            parents.append((run[0][0], len(data), len(node),
+                            sum(c[3] for c in run),
+                            sum(c[4] for c in run) + len(node),
+                            sum(c[5] for c in run)))
+            data += node
+        if len(parents) == len(level):
+            raise ValueError("%s: max_decoded_node_bytes %d holds one child "
+                             "a node" % (root, max_decoded_node_bytes))
+        level = parents
+    _, offset, length, num_keys, tree_bytes, _ = level[0]
+    with open(os.path.join(root, path), "wb") as f:
+        f.write(data)
+    body = (uuid.uuid4().bytes + _varint(0)
+            + _varint(max_inline_value_bytes) + _varint(max_decoded_node_bytes)
+            + bytes([VERSION_TREE_ARITY_LOG2]) + _varint(0)
+            + _file_table(path)
+            + _varint(1) + _varint(1) + bytes([height])
+            + _varints([0, offset, length, num_keys, tree_bytes,
+                        indirect_bytes])
+            + struct.pack("<Q", time.time_ns())
+            + _varint(0))
+    with open(manifest, "wb") as f:
+        f.write(_frame(MANIFEST_MAGIC, body))

@@ -8,6 +8,7 @@ hot reload over npz steps; and ``run_multifuture_inference``'s
 
 import os
 import pickle
+import shutil
 import threading
 import time
 
@@ -245,9 +246,10 @@ def test_loaders_accept_a_superset_checkpoint(loader, superset, prepro,
 
 
 def test_resolve_checkpoint_and_the_run_directory(tmp_path):
-    """An npz file, the latest step of a directory (a save under its
-    temporary name is not a step), a directory whose step directory is
-    not a finished orbax step refused; and
+    """An npz file, an orbax step, the latest step of a directory (a
+    save under its temporary name, orbax or npz, is not a step), a
+    directory whose step directory is not a finished orbax step
+    refused; and
     ``mvt-torch-serve``'s run-directory path: ``save``'s latest step,
     ``best``'s with --load_best, the step it loaded, and an error where
     the run holds none."""
@@ -259,10 +261,15 @@ def test_resolve_checkpoint_and_the_run_directory(tmp_path):
     mgr.save(20, models[2])
     mgr.save(15, models[3], best=True)
     (run / "save" / "step_00000030.npz.tmp.npz").write_bytes(b"partial")
-    assert [s for s, _ in list_steps(str(run / "save"))] == [10, 20]
+    shutil.copytree(str(run / "save" / "20"),
+                    str(run / "save" / "30.orbax-checkpoint-tmp-1"))
+    npz = str(run / "save" / "step_00000005.npz")
+    save_params_npz(models[1], npz)
+    assert [s for s, _ in list_steps(str(run / "save"))] == [5, 10, 20]
     latest = resolve_checkpoint(str(run / "save"))
-    assert latest.endswith("step_00000020.npz")
+    assert latest == str(run / "save" / "20")
     assert resolve_checkpoint(latest) == latest
+    assert resolve_checkpoint(npz) == npz
     (tmp_path / "orbax" / "300").mkdir(parents=True)
     with pytest.raises(ValueError, match="orbax"):
         resolve_checkpoint(str(tmp_path / "orbax"))
@@ -295,22 +302,23 @@ def test_resolve_checkpoint_and_the_run_directory(tmp_path):
 def test_a_save_in_flight_is_never_listed(tmp_path, monkeypatch):
     """``CheckpointManager.save`` writes under a temporary name and
     renames: while it writes, the directory lists only finished steps."""
-    from multiverse_torch.train import checkpoints
+    from multiverse_torch.train import orbax_writer
 
     cfg = _cfg()
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(20, Multiverse.init(cfg))
     seen = []
-    write = checkpoints.save_params_npz
+    write = orbax_writer.write_database
 
-    def spying(model, path):
-        write(model, path)
-        seen.append((os.path.basename(path),
+    def spying(root, entries):
+        write(root, entries)
+        seen.append((os.path.basename(os.path.dirname(root)),
                      [s for s, _ in list_steps(mgr.save_dir)]))
 
-    monkeypatch.setattr(checkpoints, "save_params_npz", spying)
+    monkeypatch.setattr(orbax_writer, "write_database", spying)
     mgr.save(40, Multiverse.init(cfg, seed=1))
-    assert seen == [("step_00000040.npz.tmp.npz", [20])]
+    assert len(seen) == 1 and seen[0][1] == [20]
+    assert seen[0][0].startswith("40.orbax-checkpoint-tmp-")
     assert [s for s, _ in list_steps(mgr.save_dir)] == [20, 40]
 
 

@@ -269,17 +269,19 @@ def test_cuda_request_raises_without_cuda():
 
 
 def test_port_never_imports_jax():
-    """With jax, the JAX package, orbax, tensorstore and zstandard made
-    unimportable, every module of the port and chip_smoke.py import
+    """With jax, the JAX package, orbax, tensorstore, zstandard and
+    tensorflow made unimportable, every module of the port and chip_smoke.py import
     (SimAug's and the scoring modules among them), the beam, greedy,
     int8a and int8_dyn (beam and greedy) paths run on the CPU, and so do
     one bf16 train step through mvt-torch-train's own pieces, one
     tensor-parallel step of two ranks (dp 1 x mp 2, in spawned processes
     that end with none of those modules imported), one bf16 SimAug
     multiview step,
-    one minADE scoring, one preprocessed split, and the read of the
+    one minADE scoring, one preprocessed split, the read of the
     committed orbax checkpoint of the JAX package (equal to the leaves
-    made from its seed). With cv2 and yaml unimportable too, the
+    made from its seed), one ``CheckpointManager.save`` read back equal,
+    and ``mvt-torch-convert-tf`` of the committed TF bundle (equal to the
+    leaves made from its seed). With cv2 and yaml unimportable too, the
     data-preparation modules import,
     mvt-torch-prepare-multifuture prepares a tiny bbox-JSON dataset, and
     mvt-torch-sdd-frames and mvt-torch-get-vehicle-traj stop with an
@@ -287,7 +289,8 @@ def test_port_never_imports_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "for name in ('jax', 'jaxlib', 'multiverse_tpu', 'orbax',\n"
-        "             'tensorstore', 'zstandard', 'cv2', 'yaml'):\n"
+        "             'tensorstore', 'zstandard', 'tensorflow', 'cv2',\n"
+        "             'yaml'):\n"
         "    sys.modules[name] = None      # any import of them raises\n"
         "import multiverse_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
@@ -338,7 +341,9 @@ def test_port_never_imports_jax():
         "             'parallel', 'parallel.mesh', 'forking_paths.controls',\n"
         "             'forking_paths.moments', 'forking_paths.prepared_data',\n"
         "             'data.sdd', 'data.argoverse', 'cli.prepare_data',\n"
-        "             'cli.vis_annotation'):\n"
+        "             'cli.vis_annotation', 'train.orbax_writer',\n"
+        "             'tools.tf_bundle', 'tools.tf_converter',\n"
+        "             'cli.convert_tf'):\n"
         "    assert 'multiverse_torch.' + name in names, name\n"
         "import dataclasses\n"
         "from multiverse_torch.data import multiview\n"
@@ -384,6 +389,31 @@ def test_port_never_imports_jax():
         "    for k in n.split('.'):\n"
         "        node = node[k]\n"
         "    assert np.array_equal(p.detach().numpy(), node), n\n"
+        "from multiverse_torch.bridge import params_to_numpy_tree\n"
+        "from multiverse_torch.cli import convert_tf\n"
+        "from multiverse_torch.train.checkpoints import (\n"
+        "    CheckpointManager, read_checkpoint_tree)\n"
+        "def flat(tree, pre=''):\n"
+        "    for k, v in sorted(tree.items()):\n"
+        "        if isinstance(v, dict):\n"
+        "            yield from flat(v, pre + k + '/')\n"
+        "        else:\n"
+        "            yield pre + k, v\n"
+        "def same(a, b):\n"
+        "    a, b = dict(flat(a)), dict(flat(b))\n"
+        "    return sorted(a) == sorted(b) and all(\n"
+        "        np.array_equal(a[k], b[k]) for k in b)\n"
+        "with tempfile.TemporaryDirectory() as tmp:\n"
+        "    CheckpointManager(os.path.join(tmp, 'run')).save(3, fmodel)\n"
+        "    assert same(read_checkpoint_tree(os.path.join(tmp, 'run',\n"
+        "                'save')), params_to_numpy_tree(fmodel))\n"
+        "    convert_tf.main([chip_smoke.TF_FIXTURE, tmp, 'tf', '0',\n"
+        "                     *chip_smoke.TF_FIXTURE_FLAGS])\n"
+        "    tfcfg = MultiverseConfig(use_gnn=True, use_scene_enc=True,\n"
+        "        **chip_smoke.TF_FIXTURE_WIDTHS).validate()\n"
+        "    assert same(read_checkpoint_tree(os.path.join(tmp, 'tf', '00',\n"
+        "                'best')), chip_smoke.fixture_tree(\n"
+        "                Multiverse.init(tfcfg)))\n"
         "import json, pickle\n"
         "from multiverse_torch.cli import prepare_data, vis_annotation\n"
         "with tempfile.TemporaryDirectory() as tmp:\n"

@@ -29,7 +29,7 @@ from multiverse_tpu.train.checkpoints import (
     CheckpointManager as JaxCheckpointManager,
     restore_params_from,
 )
-from multiverse_torch.bridge import params_from_jax
+from multiverse_torch.bridge import params_from_jax, save_params_npz
 from multiverse_torch.config import MultiverseConfig
 from multiverse_torch.models import Multiverse
 from multiverse_torch.native import zstd
@@ -327,17 +327,18 @@ def test_published_width_read_equals_jax_params(tmp_path):
 
 
 def test_list_steps_over_npz_and_orbax_steps(jax_run, tmp_path):
-    """A directory that mixes the port's npz steps and the JAX package's
-    orbax steps lists both by step; an orbax step in flight and a
-    directory without its metadata are not steps; one step number held
-    twice raises naming both; ``latest_step`` and ``resolve_checkpoint``
-    follow the union."""
+    """A directory that mixes an npz step of the port's earlier runs, the
+    port's orbax steps and the JAX package's lists them all by step; an
+    orbax step in flight and a directory without its metadata are not
+    steps; one step number held twice raises naming both;
+    ``latest_step`` and ``resolve_checkpoint`` follow the union."""
     run, _ = jax_run
     save = tmp_path / "save"
     shutil.copytree(os.path.join(run, "save"), str(save))
     cfg = _port_cfg()
     mgr = CheckpointManager(str(tmp_path))
-    mgr.save(150, Multiverse.init(cfg, seed=1))
+    save_params_npz(Multiverse.init(cfg, seed=1),
+                    str(save / "step_00000150.npz"))
     shutil.copytree(str(save / "200"),
                     str(save / "300.orbax-checkpoint-tmp-1692"))
     (save / "400").mkdir()
@@ -348,15 +349,17 @@ def test_list_steps_over_npz_and_orbax_steps(jax_run, tmp_path):
     assert resolve_checkpoint(str(save)) == str(save / "200")
     assert resolve_checkpoint(str(save / "100")) == str(save / "100")
     mgr.save(250, Multiverse.init(cfg, seed=2))
-    assert resolve_checkpoint(str(save)).endswith("step_00000250.npz")
-    mgr.save(200, Multiverse.init(cfg, seed=3))
+    assert resolve_checkpoint(str(save)) == str(save / "250")
+    assert [s for s, _ in orbax_steps(str(save))] == [100, 200, 250]
+    save_params_npz(Multiverse.init(cfg, seed=3),
+                    str(save / "step_00000200.npz"))
     with pytest.raises(ValueError, match="step 200 is held twice"):
         list_steps(str(save))
 
 
 def test_max_to_keep_never_removes_an_orbax_step(jax_run, tmp_path):
     """``CheckpointManager.save`` with max_to_keep 1 counts and removes
-    only the port's npz steps: every JAX step stays, whole."""
+    only the port's own steps: every JAX step stays, whole."""
     run, _ = jax_run
     shutil.copytree(os.path.join(run, "save"), str(tmp_path / "save"))
     before = sorted(os.listdir(tmp_path / "save" / "100" / "default"))

@@ -35,6 +35,7 @@ from multiverse_torch.models import Multiverse
 from multiverse_torch.models.simaug import SimAugConfig
 from multiverse_torch.serving.engine import ServingEngine
 from multiverse_torch.train.checkpoints import list_steps, load_checkpoint
+from multiverse_torch.train.orbax_writer import written_by_port
 from synthetic import tiny_config, write_multifuture_dataset
 
 WIDTHS = ["--scene_h", "12", "--scene_w", "16", "--scene_class", "5",
@@ -276,7 +277,7 @@ def test_train_load_continues_above_a_jax_run(jax_run, prepro, tmp_path,
                                               monkeypatch):
     """``mvt-torch-train --load`` in a JAX run directory starts from its
     latest orbax step (pruned to the model), saves above it and, with
-    more saves than max_to_keep, deletes only its own npz steps."""
+    more saves than max_to_keep, deletes only its own steps."""
     _, run, params, _ = jax_run
     outbase = str(tmp_path)
     os.makedirs(os.path.join(outbase, "m"))
@@ -293,10 +294,11 @@ def test_train_load_continues_above_a_jax_run(jax_run, prepro, tmp_path,
         assert torch.equal(loaded[0][n], p), n
     save = os.path.join(outbase, "m", "00", "save")
     steps = [s for s, _ in list_steps(save)]
-    # 8 examples at batch 4: 2 steps an epoch, each saved; 5 npz kept
+    # 8 examples at batch 4: 2 steps an epoch, each saved; 5 of the
+    # port's kept
     assert steps == [100, 200, 204, 205, 206, 207, 208]
-    assert sorted(n for n in os.listdir(save) if n.isdigit()) == \
-        ["100", "200"]
+    assert [s for s, p in list_steps(save) if not written_by_port(p)] == \
+        [100, 200]
 
 
 def test_train_simaug_load_from_a_jax_save_directory(jax_run, tmp_path,

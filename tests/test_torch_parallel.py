@@ -31,16 +31,13 @@ from multiverse_tpu.models import init_params as jax_init_params
 from multiverse_tpu.train import trainer as jtrainer
 from multiverse_torch import inference as tinf
 from multiverse_torch import parallel
-from multiverse_torch.bridge import (
-    load_params_npz,
-    params_from_jax,
-    params_to_numpy_tree,
-)
+from multiverse_torch.bridge import params_from_jax, params_to_numpy_tree
 from multiverse_torch.config import MultiverseConfig
 from multiverse_torch.data.dataset import batch_to_device, synthesize_prepro
 from multiverse_torch.models import Batch
 from multiverse_torch.serving.engine import ServingEngine
 from multiverse_torch.train import trainer
+from multiverse_torch.train.checkpoints import read_checkpoint_tree
 from synthetic import make_batch, tiny_config
 
 LAUNCH_TIMEOUT_S = 120.0
@@ -267,8 +264,10 @@ def test_train_cli_rank_worker_at_world_2(tmp_path):
     for name in ("config.json", "val_perf.json"):
         assert os.path.isfile(os.path.join(run2_, name))
     for step in sorted(os.listdir(os.path.join(run1, "save"))):
-        a = load_params_npz(os.path.join(run2_, "save", step))
-        b = load_params_npz(os.path.join(run1, "save", step))
+        a = params_from_jax(read_checkpoint_tree(
+            os.path.join(run2_, "save", step)))
+        b = params_from_jax(read_checkpoint_tree(
+            os.path.join(run1, "save", step)))
         for (na, ta), (nb, tb) in zip(sorted(a.named_parameters()),
                                       sorted(b.named_parameters())):
             assert na == nb

@@ -330,7 +330,7 @@ def test_tp_dropout_masks_are_the_model_groups(two_ranks):
 
 
 def test_tp_checkpoint_is_whole_and_loads_at_mp_1(two_ranks):
-    """Rank 0 saved the gathered weights of an mp = 2 step: the npz holds
+    """Rank 0 saved the gathered weights of an mp = 2 step: the step holds
     every leaf at its whole shape, equal to what both ranks gathered,
     and loads into the one-process model; each rank held half of them."""
     out, save_dir, _ = two_ranks

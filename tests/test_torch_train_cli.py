@@ -20,7 +20,7 @@ import torch
 
 from multiverse_tpu.data.dataset import read_data as jax_read_data
 from multiverse_tpu.models import model_forward as jax_model_forward
-from multiverse_torch.bridge import load_params_npz, params_to_numpy_tree
+from multiverse_torch.bridge import params_from_jax, params_to_numpy_tree
 from multiverse_torch.cli.common import config_from_args
 from multiverse_torch.cli import multifuture_inference as tinf_cli
 from multiverse_torch.cli import test as ttest
@@ -32,9 +32,12 @@ from multiverse_torch.data.dataset import (
 )
 from multiverse_torch.models import Multiverse, model_forward
 from multiverse_torch.train.checkpoints import (
+    list_steps,
     load_checkpoint,
+    read_checkpoint_tree,
     resolve_checkpoint,
 )
+from multiverse_torch.train.orbax_reader import is_orbax_step
 from synthetic import (
     tiny_config,
     write_multifuture_dataset,
@@ -133,8 +136,10 @@ def test_train_cli_writes_the_run(trained):
     assert perf["best"]["step"] > 0
     assert len(perf["val_perf"]) >= 2
     for sub in ("save", "best"):
-        files = os.listdir(os.path.join(trained, sub))
-        assert files and all(f.endswith(".npz") for f in files)
+        steps = list_steps(os.path.join(trained, sub))
+        names = os.listdir(os.path.join(trained, sub))
+        assert steps and sorted(names) == sorted(str(s) for s, _ in steps)
+        assert all(is_orbax_step(path) for _, path in steps)
 
 
 def test_best_checkpoint_decodes_and_round_trips(trained, tmp_path,
@@ -157,7 +162,7 @@ def test_best_checkpoint_decodes_and_round_trips(trained, tmp_path,
 
     # the trained weights back in the JAX layout give the JAX model the
     # same eval forward
-    model = load_params_npz(best)
+    model = params_from_jax(read_checkpoint_tree(best))
     tree = params_to_numpy_tree(model)
     ds = read_data(prepro[1], "val", cfg)
     batch, _ = ds.make_batch(list(range(4)))
@@ -189,8 +194,8 @@ def test_train_cli_resumes_and_refuses(trained, prepro):
                  "100", "--use_soft_grid_class", "--device", "cpu",
                  *MODEL_FLAGS])
     # saves continue above the loaded run's steps
-    steps = sorted(os.listdir(os.path.join(trained, "save")))
-    assert steps[-1] > "step_00000010.npz"
+    steps = list_steps(os.path.join(trained, "save"))
+    assert steps[-1][0] > 10
     # --model_parallel 2 on the CPU: two gloo ranks, each with half of
     # every weight; its one step is saved whole and loads at mp = 1,
     # equal to a one-process run's step within the step tolerance

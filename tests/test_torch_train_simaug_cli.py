@@ -3,7 +3,7 @@
 scene encoder forced on) plus ``--device`` and ``--model_parallel``;
 ``main --device cpu`` on tiny 4-camera data (multiview exp 3, FGSM,
 mixup, double weighting, dropout) writes config.json with the SimAug
-fields, npz ``{save,best}`` checkpoints that load back and
+fields, orbax ``{save,best}`` checkpoints that load back and
 ``val_perf.json``, and resumes with ``--load`` above its last step; its
 periodic eval over two gloo ranks equals the one-process eval; it
 refuses a ``--load_from`` whose step directory is not a finished orbax
@@ -17,12 +17,12 @@ import pytest
 
 from multiverse_tpu.cli import train_simaug as jax_cli
 from multiverse_torch import parallel
-from multiverse_torch.bridge import load_params_npz
+from multiverse_torch.bridge import params_from_jax
 from multiverse_torch.cli import train_simaug as cli
 from multiverse_torch.data.dataset import batch_to_device, read_data
 from multiverse_torch.data.multiview import synthesize_multiview_prepro
 from multiverse_torch.models.simaug import SimAugConfig
-from multiverse_torch.train.checkpoints import list_steps
+from multiverse_torch.train.checkpoints import list_steps, read_checkpoint_tree
 from multiverse_torch.train.evaluate import evaluate
 from multiverse_torch.train.trainer import make_eval_step
 
@@ -86,7 +86,7 @@ def test_main_on_cpu_writes_checkpoints_config_and_val_perf(prepro, capsys):
     saves = list_steps(os.path.join(run, "save"))
     assert [s for s, _ in saves] == [3, 5]
     assert list_steps(os.path.join(run, "best"))
-    model = load_params_npz(saves[-1][1])
+    model = params_from_jax(read_checkpoint_tree(saves[-1][1]))
     assert all(np.isfinite(p.detach().numpy()).all()
                for p in model.parameters())
     printed = capsys.readouterr().out
@@ -122,7 +122,7 @@ def test_eval_shards_over_two_ranks_as_one_device(prepro):
     saves = list_steps(os.path.join(out, "simaug", "00", "save"))
     assert [s for s, _ in saves] == [3, 5]
     for (_, ckpt), got in zip(saves, two[0]["evals"]):
-        model = load_params_npz(ckpt)
+        model = params_from_jax(read_checkpoint_tree(ckpt))
 
         def eval_fn(batch):
             cl, rg = step(model, batch_to_device(batch, "cpu"))
