@@ -287,6 +287,31 @@
    ``mvt-torch-multifuture-inference`` loads it, decodes 16 trajectories
    in int8a through K3, checked as in 3. Its K1 and K3 launches are
    added to the paths'.
+14. Plotting phase (``multiverse_torch/vis``, the ``mvt-torch-vis-*``
+   and CARLA-conversion commands; host numpy, cv2 and scipy), in phase
+   12's temporary directory after it, on its files at the published
+   1920x1080 frame size. (a) A PLOT_FRAMES-frame mp4v video of each of
+   its 8 obs keys, then ``mvt-torch-vis-multifuture`` on its bf16 (K1)
+   and int8a (K3) ``.traj.p``, without --use_heatmap for every key and
+   with it for every PLOT_HEATMAP_JOB-th (--job/--curJob), and
+   ``mvt-torch-vis-dataset`` on the same videos and GT pickles: every
+   drawn key has its directory and frames, and every jpg differs from
+   the jpg of the video frame it was drawn on. (b) ``mvt-torch-test
+   --save_output`` on phase 12's trained run, greedy and with K = 20
+   diverse beams (K1 batches x T for the eval, as many again for the
+   beam decode, checked), then ``mvt-torch-vis-grid`` on each pickle
+   (class heatmaps; beam paths) over PLOT_GRID_FRAMES generated frames
+   of the test video, and ``mvt-torch-vis-output`` on both pickles as
+   two coloured runs, --ordered and with --use_heatmap. (c)
+   ``mvt-torch-vis-real-data`` (with and without --h_file),
+   ``mvt-torch-vis-sdd-annotation`` on the prepared SDD files,
+   ``mvt-torch-plot-traj-carla --save_carla_traj_file`` (with and
+   without --is_actev) and ``mvt-torch-batch-plot-traj-carla`` (ActEV,
+   one scene-0002 file skipped, and ETH/UCY) on the world TSVs; each
+   command's printed line and files are checked. Each command prints
+   its host seconds and frames (or rows) a second beside the card's
+   name and power limit; cv2 and scipy must import. Its K1 launches are
+   added to the paths'.
 
 Prints one JSON line describing the kernels, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero;
@@ -340,6 +365,11 @@ from multiverse_torch.cli import train as train_cli
 from multiverse_torch.cli import test as test_cli
 from multiverse_torch.cli import train_simaug as simaug_cli
 from multiverse_torch.cli import vis_annotation as vis_annotation_cli
+from multiverse_torch.cli import vis_dataset as vis_dataset_cli
+from multiverse_torch.cli import vis_multifuture_trajs_video as vis_mf_cli
+from multiverse_torch.cli import vis_real_data as vis_real_cli
+from multiverse_torch.cli import visualize_grid as vis_grid_cli
+from multiverse_torch.cli import visualize_output as vis_output_cli
 from multiverse_torch.config import MultiverseConfig
 from multiverse_torch import parallel
 from multiverse_torch.bridge import (
@@ -357,6 +387,7 @@ from multiverse_torch.data.multiview import (
     synthesize_multiview_prepro,
 )
 from multiverse_torch.forking_paths import controls as fp_controls
+from multiverse_torch.forking_paths import moments as fp_moments
 from multiverse_torch.forking_paths import prepared_data
 from multiverse_torch.geometry import one_hot_grid
 from multiverse_torch.models import Multiverse, simaug
@@ -4153,6 +4184,381 @@ def data_prep_phase(dev, tmp: str, card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- plotting
+
+# phase 14: the plotting commands on phase 12's files at the published
+# frame size. Each obs key gets a PLOT_FRAMES-frame video;
+# mvt-torch-vis-multifuture --use_heatmap (one full-frame blur a frame)
+# draws every PLOT_HEATMAP_JOB-th key (--job/--curJob 1), the plain run
+# every key. mvt-torch-test's pickles are drawn on the first
+# PLOT_GRID_FRAMES frames of the test video; mvt-torch-vis-output draws
+# PLOT_OUTPUT_NUM images, PLOT_OUTPUT_HEAT of them with --use_heatmap
+PLOT_H, PLOT_W = 1080, 1920
+PLOT_FRAMES, PLOT_HEATMAP_JOB = 8, 4
+PLOT_GRID_FRAMES, PLOT_OUTPUT_NUM, PLOT_OUTPUT_HEAT = 3, 12, 4
+# mvt-torch-test's beam decode: the README quick start's K = 20 beams
+PLOT_BEAMS = 20
+PLOT_BEAM_FLAGS = ["--use_beam_search", "--beam_size", str(PLOT_BEAMS),
+                   "--diverse_beam", "--diverse_gamma", "0.01"]
+
+
+def plot_image(seed: int) -> np.ndarray:
+    """A smooth 1920x1080 BGR frame that changes with ``seed``."""
+    y = np.arange(PLOT_H, dtype=np.int32)[:, None]
+    x = np.arange(PLOT_W, dtype=np.int32)[None, :]
+    img = np.empty((PLOT_H, PLOT_W, 3), np.uint8)
+    img[..., 0] = (x // 8 + seed * 17) % 256
+    img[..., 1] = (y // 5 + seed * 5) % 256
+    img[..., 2] = ((x + y) // 12 + seed * 40) % 256
+    return img
+
+
+def plot_main(what: str, card: str, main, argv: list, n: int,
+              unit: str = "frames") -> str:
+    """Run a command's ``main`` once with its stdout captured (and
+    printed); prints its host seconds and ``n`` ``unit`` a second (images
+    at 1920x1080) beside the card's name and power limit. Returns what it
+    printed."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    dt = time.perf_counter() - t0
+    print(buf.getvalue(), end="")
+    print("plotting phase (%s): %s %.4f s, %d %s, %.2f %s/s%s (host "
+          "figures of the card's machine)"
+          % (card, what, dt, n, unit, n / dt, unit,
+             "" if unit == "rows" else " at %dx%d" % (PLOT_W, PLOT_H)))
+    return buf.getvalue()
+
+
+def drawn_on(what: str, written: list, plain: list) -> None:
+    """Each written jpg differs from the jpg of the frame it was drawn
+    on, encoded as the commands encode: a frame nothing was drawn on
+    would give the same bytes."""
+    import cv2
+
+    if len(written) != len(plain) or not written:
+        raise AssertionError(f"{what}: {len(written)} files for "
+                             f"{len(plain)} frames")
+    for path, frame in zip(written, plain):
+        with open(path, "rb") as f:
+            if f.read() == cv2.imencode(".jpg", frame)[1].tobytes():
+                raise AssertionError(f"{what}: nothing drawn on {path}")
+
+
+def video_frames(path: str) -> list:
+    import cv2
+
+    vcap = cv2.VideoCapture(path)
+    frames = []
+    while True:
+        ok, frame = vcap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    vcap.release()
+    return frames
+
+
+def plot_multifuture(root: str, card: str, prep: str) -> None:
+    """(a): a PLOT_FRAMES-frame mp4 of each obs key, then
+    mvt-torch-vis-multifuture on phase 12's bf16 (K1) and int8a (K3)
+    ``.traj.p``, with and without --use_heatmap, and
+    mvt-torch-vis-dataset on the same videos."""
+    import cv2
+
+    gt_path = os.path.join(prep, "mf", "test")
+    keys = sorted(os.path.splitext(n)[0] for n in os.listdir(gt_path))
+    videos = os.path.join(root, "videos")
+    os.makedirs(videos)
+    t0 = time.perf_counter()
+    for k, key in enumerate(keys):
+        vw = cv2.VideoWriter(os.path.join(videos, key + ".mp4"),
+                             cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                             (PLOT_W, PLOT_H))
+        for i in range(PLOT_FRAMES):
+            vw.write(plot_image(PLOT_FRAMES * k + i))
+        vw.release()
+    print("plotting phase: %d mp4v videos of %d frames at %dx%d written in "
+          "%.3f s" % (len(keys), PLOT_FRAMES, PLOT_W, PLOT_H,
+                      time.perf_counter() - t0))
+    plain = {key: video_frames(os.path.join(videos, key + ".mp4"))
+             for key in keys}
+    for tier in ("none", "int8a"):
+        traj_p = os.path.join(prep, "%s.traj.p" % tier)
+        with open(traj_p, "rb") as f:
+            order = list(pickle.load(f))
+        if sorted(order) != keys:
+            raise AssertionError(f"{traj_p}: keys {order}")
+        for heat in (False, True):
+            out = os.path.join(root, "mf_%s_%d" % (tier, heat))
+            flags = ["--use_heatmap", "--job", str(PLOT_HEATMAP_JOB),
+                     "--curJob", "1"] if heat else []
+            drawn = [key for c, key in enumerate(order, 1)
+                     if not heat or c % PLOT_HEATMAP_JOB == 0]
+            plot_main("mvt-torch-vis-multifuture %s%s" % (
+                tier, " " + " ".join(flags) if heat else ""), card,
+                vis_mf_cli.main, [gt_path, traj_p, videos, out, *flags],
+                len(drawn) * PLOT_FRAMES)
+            if sorted(os.listdir(out)) != sorted(drawn):
+                raise AssertionError(f"vis-multifuture: {os.listdir(out)}")
+            for key in drawn:
+                drawn_on("vis-multifuture %s" % key, [
+                    os.path.join(out, key, "%08d.jpg" % i)
+                    for i in range(len(os.listdir(os.path.join(out, key))))],
+                    plain[key])
+    out = os.path.join(root, "dataset")
+    text = plot_main("mvt-torch-vis-dataset --drop_frame 2", card,
+                     vis_dataset_cli.vis_dataset_main,
+                     [videos, gt_path, out, "--drop_frame", "2"],
+                     len(keys) * PLOT_FRAMES // 2)
+    if text.strip() != "visualized %d obs groups" % len(keys):
+        raise AssertionError(f"vis-dataset: {text!r}")
+    for key in keys:
+        drawn_on("vis-dataset %s" % key, [
+            os.path.join(out, key, "%08d.jpg" % i)
+            for i in range(len(os.listdir(os.path.join(out, key))))],
+            plain[key][::2])
+
+
+def plot_test_outputs(root: str, card: str, prep: str) -> dict:
+    """(b): mvt-torch-test --save_output on phase 12's trained run, greedy
+    and with the beam decode (K1 batches x T each, the beam decode as
+    many again), then mvt-torch-vis-grid on each pickle and
+    mvt-torch-vis-output on both as two runs. Returns K1's launches."""
+    import cv2
+
+    cfg = train_config()
+    prepro = os.path.join(prep, "prepro")
+    with np.load(os.path.join(prepro, "data_test.npz"),
+                 allow_pickle=True) as d:
+        n_test = len(d["obs_traj"])
+    batches = -(-n_test // cfg.batch_size)
+    pickles, k1 = {}, 0
+    for mode, flags in (("greedy", []), ("beam", PLOT_BEAM_FLAGS)):
+        pickles[mode] = os.path.join(root, "%s.p" % mode)
+        reset_launches()
+        t0 = time.perf_counter()
+        perf = test_cli.main([prepro, os.path.join(prep, "out"), "prepared",
+                              "--save_output", pickles[mode],
+                              *TP_TEST_FLAGS, *flags])
+        torch.cuda.synchronize()
+        ran = decode_step_gathered.launches
+        want = batches * cfg.pred_len * (2 if flags else 1)
+        print("plotting phase: mvt-torch-test --save_output %s on the %d "
+              "test examples in %.3f s (load included): grid0_traj_ade "
+              "%.4f; K1 ran %d times (%d batches x T %d%s)"
+              % (mode, n_test, time.perf_counter() - t0,
+                 perf["grid0_traj_ade"], ran, batches, cfg.pred_len,
+                 ", eval and beam decode" if flags else ""))
+        if ran != want or not np.isfinite(perf["grid0_traj_ade"]):
+            raise AssertionError(f"mvt-torch-test {mode}: K1 {ran}, "
+                                 f"want {want}; {perf}")
+        k1 += ran
+    with open(pickles["greedy"], "rb") as f:
+        data = pickle.load(f)
+    with open(pickles["beam"], "rb") as f:
+        beam = pickle.load(f)
+    seq_ids = [str(s).rsplit("_", 2) for s in data["seq_ids"]]
+    if len(seq_ids) != n_test or [str(s) for s in beam["seq_ids"]] \
+            != [str(s) for s in data["seq_ids"]] \
+            or np.asarray(beam["beam_grid_ids"]).shape \
+            != (n_test, PLOT_BEAMS, cfg.pred_len):
+        raise AssertionError("mvt-torch-test's pickles")
+    video = seq_ids[0][0]
+    chosen = []
+    for v, fr, _ in seq_ids:
+        if v == video and int(fr) not in chosen:
+            chosen.append(int(fr))
+    chosen = chosen[:PLOT_GRID_FRAMES]
+    # the leading examples on the chosen frames (the test split holds
+    # them first): vis-grid reads no frame it was not given
+    end = next((i for i, (v, fr, _) in enumerate(seq_ids)
+                if v != video or int(fr) not in chosen), len(seq_ids))
+    frames = os.path.join(root, "frames", video)
+    os.makedirs(frames)
+    last_obs = (cfg.obs_len - 1) * 12
+    plain = {}
+    for k, fr in enumerate(chosen):
+        for at in (fr, fr + last_obs):
+            if at not in plain:
+                plain[at] = plot_image(100 + at)
+                cv2.imwrite(os.path.join(frames, "%s_F_%08d.jpg"
+                                         % (video, at)), plain[at])
+    # what the commands read back from those jpgs
+    plain = {at: cv2.imread(os.path.join(frames, "%s_F_%08d.jpg"
+                                         % (video, at))) for at in plain}
+    for mode, flags in (("greedy", []),
+                        ("beam", PLOT_BEAM_FLAGS[:3])):
+        out = os.path.join(root, "grid_" + mode)
+        text = plot_main("mvt-torch-vis-grid %s" % mode, card,
+                         vis_grid_cli.main,
+                         [pickles[mode], out, os.path.dirname(frames),
+                          "--vis_end", str(end), *flags], len(chosen))
+        if text.splitlines()[-1] != "wrote %d frames" % len(chosen):
+            raise AssertionError(f"vis-grid {mode}: {text!r}")
+        drawn_on("vis-grid %s" % mode, [
+            os.path.join(out, video, "%s_F_%08d.jpg" % (video, fr))
+            for fr in chosen], [plain[fr + last_obs] for fr in chosen])
+    outlist = os.path.join(root, "outlist.txt")
+    with open(outlist, "w") as f:
+        f.write("%s,0_0_255\n%s,255_128_0\n" % (pickles["greedy"],
+                                                 pickles["beam"]))
+    with_frames = [i for i, (v, fr, _) in enumerate(seq_ids)
+                   if v == video and int(fr) in plain]
+    for flags, n in ((["--ordered", "--vis_num", str(PLOT_OUTPUT_NUM)],
+                      PLOT_OUTPUT_NUM),
+                     (["--use_heatmap", "--vis_num", str(PLOT_OUTPUT_HEAT)],
+                      PLOT_OUTPUT_HEAT)):
+        n = min(n, len(with_frames))
+        out = os.path.join(root, "output" + flags[0].replace("-", "_"))
+        text = plot_main("mvt-torch-vis-output %s (greedy and beam runs)"
+                         % " ".join(flags), card, vis_output_cli.main,
+                         [outlist, os.path.dirname(frames), out, *flags], n,
+                         "images")
+        if text.strip() != "wrote %d visualizations" % n:
+            raise AssertionError(f"vis-output: {text!r}")
+        names = sorted(os.listdir(out))
+        drawn_on("vis-output", [os.path.join(out, name) for name in names],
+                 [plain[int(name[:-4].rsplit("_", 2)[1])] for name in names])
+    return {"K1": k1}
+
+
+def plot_host_commands(root: str, card: str, tmp: str) -> None:
+    """(c): mvt-torch-vis-real-data on phase 12's pixel and world TSVs
+    (with and without --h_file), mvt-torch-vis-sdd-annotation on its
+    prepared SDD files, and the CARLA conversions of its world TSVs."""
+    import cv2
+
+    host = os.path.join(tmp, "prep_host")
+    # the pixel and world TSVs of phase 12's mvt-torch-combine-traj
+    # --is_actev run
+    pixel_dir = os.path.join(host, "combined_5")
+    world_dir = os.path.join(host, "combined_world")
+    names = sorted(os.path.splitext(n)[0] for n in os.listdir(world_dir))
+    name = next(n for n in names
+                if fp_moments.get_scene(n) == PREP_ANCHOR_SCENES["test"])
+    with open(os.path.join(pixel_dir, name + ".txt")) as f:
+        start = min(int(float(line.split("\t")[0])) for line in f)
+    frame_file = os.path.join(root, "real_frames", name,
+                              "%s_F_%08d.jpg" % (name, start))
+    os.makedirs(os.path.dirname(frame_file))
+    cv2.imwrite(frame_file, plot_image(7))
+    for flags in ([], ["--h_file", os.path.join(
+            host, "homography", fp_moments.get_scene(name) + ".txt"),
+            "--world_rotate", "30"]):
+        vis = os.path.join(root, "real_%d" % len(flags), name + ".jpg")
+        text = plot_main("mvt-torch-vis-real-data%s" % (
+            " --h_file --world_rotate 30" if flags else ""), card,
+            vis_real_cli.main,
+            [os.path.join(root, "real_frames"), str(start),
+             os.path.join(pixel_dir, name + ".txt"),
+             os.path.join(world_dir, name + ".txt"), vis, *flags], 1)
+        img = cv2.imread(vis)
+        if text.strip() != "wrote %s" % vis \
+                or img.shape != (PLOT_H, 2 * PLOT_W, 3):
+            raise AssertionError(f"vis-real-data: {text!r}")
+
+    sdd = os.path.join(host, "sdd_prepared")
+    sdd_frames = os.path.join(root, "sdd_frames")
+    n_frames = 0
+    for split in os.listdir(os.path.join(sdd, "traj_2.5fps")):
+        for traj in os.listdir(os.path.join(sdd, "traj_2.5fps", split)):
+            vid = os.path.splitext(traj)[0]
+            seen = []
+            with open(os.path.join(sdd, "traj_2.5fps", split, traj)) as f:
+                for line in f:
+                    fr = int(line.split("\t")[0])
+                    if fr not in seen:
+                        seen.append(fr)
+                    if len(seen) == 3:
+                        break
+            os.makedirs(os.path.join(sdd_frames, vid))
+            for fr in seen:
+                cv2.imwrite(os.path.join(sdd_frames, vid, "%s_F_%08d.jpg"
+                                         % (vid, fr)), plot_image(fr))
+            n_frames += len(seen)
+    out = os.path.join(root, "sdd_vis")
+    text = plot_main("mvt-torch-vis-sdd-annotation", card,
+                     vis_annotation_cli.vis_sdd_annotation_main,
+                     [sdd, sdd_frames, out], n_frames)
+    written = sum(len(os.listdir(os.path.join(out, d)))
+                  for d in os.listdir(out))
+    if text.strip() != "wrote %d annotated frames" % written or not written:
+        raise AssertionError(f"vis-sdd-annotation: {text!r}, {written}")
+
+    scene = fp_moments.get_scene(name)
+    calib = fp_moments.GROUND_CALIBRATIONS[scene]
+    with open(os.path.join(world_dir, name + ".txt")) as f:
+        n_rows = len(f.readlines())
+    for flags in ([], ["--is_actev"]):
+        dst = os.path.join(root, "carla_%d.txt" % len(flags))
+        text = plot_main("mvt-torch-plot-traj-carla --save_carla_traj_file"
+                         + (" --is_actev" if flags else ""), card,
+                         vis_annotation_cli.plot_traj_carla_main,
+                         [os.path.join(world_dir, name + ".txt"),
+                          *(str(v) for v in calib["origin"]),
+                          str(calib["carla_rotate"]), "--world_rotate",
+                          str(calib["world_rotate"]),
+                          "--save_carla_traj_file", dst, *flags], n_rows,
+                         "rows")
+        got = np.loadtxt(dst, ndmin=2)
+        if text.strip() != "saved %s" % dst or got.shape != (n_rows, 5) \
+                or not np.isfinite(got).all():
+            raise AssertionError(f"plot-traj-carla: {text!r}")
+    # ActEV: phase 12's world TSVs and a copy under a scene-0002 name,
+    # which the command skips; vehicles for two of them
+    actev, veh = os.path.join(root, "actev_world"), \
+        os.path.join(root, "actev_vehicle")
+    shutil.copytree(world_dir, actev)
+    os.makedirs(veh)
+    shutil.copy(os.path.join(world_dir, name + ".txt"),
+                os.path.join(actev, "VIRAT_S_000200_00.txt"))
+    for n in names[:2]:
+        shutil.copy(os.path.join(world_dir, n + ".txt"), veh)
+    n_rows = sum(1 for n in os.listdir(actev)
+                 for _ in open(os.path.join(actev, n)))
+    for mode, args, done in (
+            ("ActEV", [actev, os.path.join(root, "carla_actev"),
+                       "--traj_vehicle_world_path", veh,
+                       "--save_carla_vehicle_path",
+                       os.path.join(root, "carla_vehicle")],
+             "converted %d files (1 skipped)" % len(names)),
+            ("ETH/UCY", [world_dir, os.path.join(root, "carla_ethucy")],
+             "converted %d files (0 skipped)" % len(names))):
+        text = plot_main("mvt-torch-batch-plot-traj-carla (%s)" % mode, card,
+                         vis_annotation_cli.batch_plot_traj_carla_main, args,
+                         n_rows, "rows")
+        if text.strip() != "%s -> %s" % (done, args[1]) \
+                or sorted(os.listdir(args[1])) != sorted(
+                    n + ".txt" for n in names):
+            raise AssertionError(f"batch-plot-traj-carla {mode}: {text!r}")
+    if sorted(os.listdir(os.path.join(root, "carla_vehicle"))) \
+            != sorted(n + ".txt" for n in names[:2]):
+        raise AssertionError("batch-plot-traj-carla: the vehicle files")
+
+
+def plotting_phase(tmp: str, card: str) -> dict:
+    """Phase 14 (see the module docstring), in phase 12's temporary
+    directory. Returns K1's launches."""
+    import cv2
+    import scipy
+
+    print("plotting phase: cv2 %s, scipy %s" % (cv2.__version__,
+                                                 scipy.__version__))
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "plot")
+    os.makedirs(root)
+    prep = os.path.join(tmp, "prep")
+    plot_multifuture(root, card, prep)
+    launches = plot_test_outputs(root, card, prep)
+    plot_host_commands(root, card, tmp)
+    print("plotting phase (%s): %.3f s whole (host figures of the card's "
+          "machine)" % (card, time.perf_counter() - t0))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4248,6 +4654,9 @@ def main() -> int:
         for k, n in data_prep_phase(dev, tmp, smi.stdout.strip()).items():
             launches[k] += n
         elapsed("data-prep phase")
+        for k, n in plotting_phase(tmp, smi.stdout.strip()).items():
+            launches[k] += n
+        elapsed("plotting phase")
     simaug_run = simaug_phase(model, dev)
     for k in ("K1", "K4", "K5"):
         launches[k] += simaug_run[k]

@@ -285,7 +285,11 @@ def test_port_never_imports_jax():
     data-preparation modules import,
     mvt-torch-prepare-multifuture prepares a tiny bbox-JSON dataset, and
     mvt-torch-sdd-frames and mvt-torch-get-vehicle-traj stop with an
-    ImportError naming cv2 and yaml."""
+    ImportError naming cv2 and yaml; the plotting modules (``vis``,
+    ``vis.trajs`` and the five ``mvt-torch-vis-*`` CLI modules) import,
+    and mvt-torch-vis-grid and mvt-torch-batch-plot-traj-carla parse
+    their arguments and stop with an ImportError naming cv2 and the
+    command, having written no file."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for name in ('jax', 'jaxlib', 'multiverse_tpu', 'orbax',\n"
@@ -343,7 +347,10 @@ def test_port_never_imports_jax():
         "             'data.sdd', 'data.argoverse', 'cli.prepare_data',\n"
         "             'cli.vis_annotation', 'train.orbax_writer',\n"
         "             'tools.tf_bundle', 'tools.tf_converter',\n"
-        "             'cli.convert_tf'):\n"
+        "             'cli.convert_tf', 'vis', 'vis.trajs',\n"
+        "             'cli.visualize_output', 'cli.visualize_grid',\n"
+        "             'cli.vis_multifuture_trajs_video', 'cli.vis_dataset',\n"
+        "             'cli.vis_real_data'):\n"
         "    assert 'multiverse_torch.' + name in names, name\n"
         "import dataclasses\n"
         "from multiverse_torch.data import multiview\n"
@@ -447,6 +454,22 @@ def test_port_never_imports_jax():
         "            assert e.name == package and 'mvt-torch-' in str(e), e\n"
         "        else:\n"
         "            raise AssertionError('no ImportError for ' + package)\n"
+        "from multiverse_torch.cli import visualize_grid\n"
+        "with tempfile.TemporaryDirectory() as tmp:\n"
+        "    for main, command, args in (\n"
+        "            (visualize_grid.main, 'mvt-torch-vis-grid',\n"
+        "             ['out.p', 'vis', 'frames', '--use_beam_search']),\n"
+        "            (vis_annotation.batch_plot_traj_carla_main,\n"
+        "             'mvt-torch-batch-plot-traj-carla',\n"
+        "             ['world', 'carla', '--job', '2'])):\n"
+        "        try:\n"
+        "            main([a if a.startswith('--') or a.isdigit()\n"
+        "                  else os.path.join(tmp, a) for a in args])\n"
+        "        except ImportError as e:\n"
+        "            assert e.name == 'cv2' and command in str(e), e\n"
+        "        else:\n"
+        "            raise AssertionError('no ImportError for ' + command)\n"
+        "        assert os.listdir(tmp) == [], os.listdir(tmp)\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
         "             and m.startswith(('jax', 'multiverse_tpu', 'orbax',\n"
         "                               'tensorstore', 'zstandard', 'cv2',\n"

@@ -54,6 +54,18 @@ MODEL_FLAGS = [
 ]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's tiny CPU trainings and decodes run on one intra-op
+    thread: with a thread pool a process, the suite's parallel workers
+    oversubscribe the cores and the small ops wait on each other (a
+    2-epoch run took minutes instead of seconds)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def prepro(tmp_path_factory):
     from multiverse_tpu.cli import preprocess
