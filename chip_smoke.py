@@ -312,6 +312,45 @@
    its host seconds and frames (or rows) a second beside the card's
    name and power limit; cv2 and scipy must import. Its K1 launches are
    added to the paths'.
+15. Recorded-moment phase (``multiverse_torch/forking_paths``'s
+   recorder, moment and pygame tools, ``cli/moment_tools.py``,
+   ``data/scene_extract.py``), last, in a temporary directory of its
+   own: the Forking Paths chain from a moment recorded through the fake
+   CARLA backend (``tests/torch_fake_carla.py``) to K = 20 scores. (1)
+   ``mvt-torch-record-moments``'s own ``main``, one process a recording,
+   all at once: REC_OBS_KEYS x REC_FUTURES moments built
+   with ``traj_to_controls`` (an x-agent and a second pedestrian,
+   REC_FRAMES frames at 25 fps: obs 8 + pred 12 at 2.5 fps) seen by a
+   straight-down 1920x1080 rig from a registry in the temporary
+   directory, and one ``--is_anchor_moment`` recording from the packaged
+   registry's anchor rig; every recording's rgb and seg mp4 and bbox
+   JSON checked (both walkers boxed). ``mvt-torch-build-moment`` replays
+   the first walk (``replay OK``) and ``mvt-torch-auto-moment-candidates``
+   sweeps it (candidates found). (2) ``extract_frames_and_seg`` to the
+   published 36x64 class maps (every map decodes to ADE20k person),
+   ``prepare_multifuture_split`` (2 obs keys x 2 futures of 12 steps),
+   ``prepare_anchor_split`` and ``mvt-torch-preprocess``'s ``main``
+   with TRAINING.md's flags. (3) ``mvt-torch-train``'s ``main`` at the
+   published flags in bf16 on cuda for 2 epochs (every loss finite; K4
+   and K5 steps x 12; the eval's K1 batches x 12), then
+   ``mvt-torch-multifuture-inference`` at K = 20 in bf16 (K1) and int8a
+   (K3) on the 2 recorded obs keys (each kernel batches x T times), and
+   ``mvt-torch-eval-trajs`` and ``-eval-prob`` (finite scores). (4)
+   ``segment_images`` of ``mvt-torch-extract-scene-seg`` over every
+   REC_SEG_EVERY-th recorded RGB frame with a fixed numpy segmenter
+   (every npy checked).
+   In subprocesses: where tensorflow imports, ``mvt-torch-extract-
+   scene-seg`` on a one-op DeepLab graph (the card hidden); where
+   pygame imports, ``mvt-torch-spectator`` and the moment editor at
+   1920x1080 under SDL's dummy driver; where transformers imports, the
+   command with a random SegFormer built from a small ``SegformerConfig``
+   on cuda and on cpu (seconds a frame each; the share of equal pixels
+   printed as information). Where one of the three, or a package it
+   needs (SegFormer's image processor needs torchvision from
+   transformers 5), does not import, a line says what was not run and
+   why; a failure of a part that ran fails the phase. (5) Each stage prints its host seconds and frames/s
+   or examples/s beside the card's name and power limit, and the phase
+   its total. Its K1, K3, K4 and K5 launches are added to the paths'.
 
 Prints one JSON line describing the kernels, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero;
@@ -328,6 +367,10 @@ numbers behind WMMA_H2_SAME and WMMA_C_SAME.
 builds the kernels and runs only the training-kernel phase (5.), with
 its gates; copied into another checkout, it reads that checkout's K4
 and K5 the same way.
+
+    python3 chip_smoke.py --recorded-only
+
+builds the kernels and runs only the recorded-moment phase (15.).
 """
 
 from __future__ import annotations
@@ -4559,6 +4602,656 @@ def plotting_phase(tmp: str, card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------ recorded moments
+
+# phase 15: moments recorded through the fake CARLA backend
+# (tests/torch_fake_carla.py) at the published 1920x1080 frame size, then
+# the Forking Paths chain on what was recorded. REC_SCENE is an ETH/UCY
+# scene (25 fps; the multi-future obs starts at frame 32, every 10th
+# frame): a walk of REC_FRAMES frames gives obs 8 + pred 12. REC_OBS_KEYS
+# moments x REC_FUTURES futures of an x-agent (pid 1) beside a second
+# pedestrian (pid 2), seen by a straight-down rig from a registry in the
+# temporary directory; the x-agent turns its own way after REC_DIVERGE.
+# One more recording of the packaged registry's anchor rig
+# (--is_anchor_moment, obs 8 + pred 13 at 2.5 of 25 fps: 200 frames, 20
+# sampled, one obs 8 + pred 12 window a walker). Each recording is one
+# mvt-torch-record-moments process, all five at once.
+REC_SCENE, REC_FPS, REC_W, REC_H = "zara01", 25.0, 1920, 1080
+REC_FRAMES, REC_DIVERGE = 231, 102
+REC_OBS_KEYS, REC_FUTURES = 2, 2
+REC_ANCHOR_OBS, REC_ANCHOR_PRED = 8, 13
+REC_TRAIN_FLAGS = list(PREP_TRAIN_FLAGS)
+REC_TRAIN_FLAGS[REC_TRAIN_FLAGS.index("--num_epochs") + 1] = "2"
+# the SegFormer phase 15 builds where transformers imports (random
+# weights, a small SegformerConfig) and the frames it segments
+REC_SEGFORMER_FRAMES = 8
+# segment_images with the numpy segmenter reads every REC_SEG_EVERY-th
+# recorded frame
+REC_SEG_EVERY = 4
+REC_SEGFORMER_DEVICES = ("cuda", "cpu")
+TESTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+
+
+def rec_walk(m: int, dy: float, start: tuple = (-6.0, 0.0),
+             frames: int = REC_FRAMES, diverge: int = REC_DIVERGE,
+             speed: float = 0.05) -> list:
+    """Trajectory rows (frame, pid, x, y, z) every 10th frame: pid 1
+    walks along x and turns by ``dy`` m after ``diverge``; pid 2 walks
+    1.5 m beside it. Moment ``m`` starts 3 m further along y."""
+    rows = []
+    for f in range(0, frames, 10):
+        x = start[0] + speed * f
+        y = start[1] - 3.0 * m + (
+            0.0 if f <= diverge else dy * (f - diverge) / (frames - diverge))
+        rows.append((f, 1, x, y, 0.5))
+        rows.append((f, 2, x - 1.0, y + 1.5, 0.5))
+    return rows
+
+
+def anchor_ground_point(rig) -> tuple:
+    """Where the centre ray of ``rig`` meets the walkers' plane z = 0.5."""
+    from multiverse_torch.forking_paths import camera
+
+    eye = np.array([rig.transform.x, rig.transform.y, rig.transform.z])
+    ray = camera.pixel_to_world(rig.width / 2, rig.height / 2, 1.0, rig) - eye
+    t = (0.5 - eye[2]) / ray[2]
+    return tuple(eye[:2] + t * ray[:2])
+
+
+def record_process(argv: list):
+    """Start one mvt-torch-record-moments run over the fake backend in
+    a process of its own."""
+    code = ("import sys; sys.path.insert(0, %r); import torch_fake_carla; "
+            "torch_fake_carla.install(); from multiverse_torch.cli import "
+            "vis_dataset; vis_dataset.record_moments_main(%r)"
+            % (TESTS_DIR, argv))
+    return subprocess.Popen([sys.executable, "-c", code],
+                            cwd=os.path.dirname(TESTS_DIR),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def rec_write_moments(root: str) -> dict:
+    """The registry, the moment JSONs (one a recording), the anchor
+    moment and a trajectory file of the first moment's walk."""
+    from multiverse_torch.forking_paths import scenes
+
+    registry = {
+        "scenes": {REC_SCENE: {"map": "Town03_ethucy", "fps": REC_FPS,
+                               "static_cars": [], "weather": {}}},
+        "cameras": {"recording": {REC_SCENE: [
+            {"fov": 90.0, "location_xyz": [0.0, 0.0, 18.0],
+             "rotation_pyr": [-90.0, 0.0, 0.0],
+             "width": REC_W, "height": REC_H}]}}}
+    out = {"registry": os.path.join(root, "registry.json"), "argv": [],
+           "mf": [], "obs_keys": []}
+    with open(out["registry"], "w") as f:
+        json.dump(registry, f)
+    ds = os.path.join(root, "dataset")
+    for m in range(REC_OBS_KEYS):
+        out["obs_keys"].append("%s_%d_1_cam1" % (REC_SCENE, m))
+        for d in range(REC_FUTURES):
+            rows = rec_walk(m, 2.0 * (d - (REC_FUTURES - 1) / 2))
+            controls, _ = fp_controls.traj_to_controls(
+                np.asarray(rows, np.float64), -1, -1, REC_FPS)
+            mid = "%s_%d_1_%d_%s" % (REC_SCENE, m, d, "ab"[d])
+            path = os.path.join(root, mid + ".json")
+            with open(path, "w") as f:
+                json.dump([{"scenename": REC_SCENE, "moment_id": mid,
+                            "ped_controls": controls,
+                            "vehicle_controls": {},
+                            "x_agents": {"1": []}}], f, default=float)
+            out["argv"].append([path, ds, "--scene_registry",
+                                out["registry"]])
+            out["mf"].append(mid + "_cam1")
+            if m == 0 and d == 0:
+                traj_dir = os.path.join(root, "traj")
+                os.makedirs(traj_dir)
+                out["traj"] = os.path.join(traj_dir, REC_SCENE + ".txt")
+                with open(out["traj"], "w") as f:
+                    f.writelines("%d\t%d\t%.3f\t%.3f\t%.3f\n" % r
+                                 for r in rows)
+    rig = scenes.load_default_registry().cameras["anchor"][REC_SCENE][0]
+    frames = (REC_ANCHOR_OBS + REC_ANCHOR_PRED - 1) * 10 + 1
+    rows = rec_walk(0, 0.0, start=anchor_ground_point(rig), frames=frames,
+                    diverge=frames, speed=0.01)
+    controls, _ = fp_controls.traj_to_controls(np.asarray(rows, np.float64),
+                                               -1, -1, REC_FPS)
+    path = os.path.join(root, "anchor.json")
+    with open(path, "w") as f:
+        json.dump([{"scenename": REC_SCENE, "filename": REC_SCENE,
+                    "original_start_frame_id": 0, "ped_controls": controls,
+                    "vehicle_controls": {}}], f, default=float)
+    out["argv"].append([path, ds, "--is_anchor_moment", "--video_fps",
+                        str(REC_FPS), "--annotation_fps", "2.5",
+                        "--obs_length", str(REC_ANCHOR_OBS),
+                        "--pred_length", str(REC_ANCHOR_PRED)])
+    out["anchor"] = "%s_F_0_obs%d_pred%d_cam1" % (REC_SCENE, REC_ANCHOR_OBS,
+                                                  REC_ANCHOR_PRED)
+    out["ds"] = ds
+    return out
+
+
+def rec_record(root: str, card: str) -> dict:
+    """(1) Every recording in parallel processes, then the two moment
+    commands on the first walk's trajectory file."""
+    inp = rec_write_moments(root)
+    t0 = time.perf_counter()
+    procs = [record_process(argv) for argv in inp["argv"]]
+    runs = []
+    try:
+        for proc in procs:
+            out, _ = proc.communicate(timeout=600)
+            runs.append(time.perf_counter() - t0)
+            if proc.returncode != 0:
+                raise AssertionError("mvt-torch-record-moments failed "
+                                     "(exit %d):\n%s"
+                                     % (proc.returncode, out[-4000:]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    dt = time.perf_counter() - t0
+    names = inp["mf"] + [inp["anchor"]]
+    frames = 0
+    for name in names:
+        need_files("mvt-torch-record-moments", [
+            os.path.join(inp["ds"], sub, name + ext) for sub, ext in (
+                ("videos", ".mp4"), ("videos_seg", ".mp4"),
+                ("bbox", ".json"))])
+        data = prepared_data.load_frame_data(
+            os.path.join(inp["ds"], "bbox", name + ".json"))
+        tracks = {b["track_id"] for boxes in data.values() for b in boxes}
+        if tracks != {1.0, 2.0}:
+            raise AssertionError(f"{name}: boxes of tracks {tracks}")
+        frames += len(data)
+    print("recorded-moment phase (%s): mvt-torch-record-moments, %d "
+          "recordings at %dx%d, one process each: %.3f s, %d frames (rgb + "
+          "seg), %.1f frames/s; processes done at %s s (host)"
+          % (card, len(runs), REC_W, REC_H, dt, frames, frames / dt,
+             [round(r, 3) for r in runs]))
+
+    from multiverse_torch.cli import moment_tools
+
+    sys.path.insert(0, TESTS_DIR)
+    import torch_fake_carla
+
+    torch_fake_carla.install()
+    try:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            moment_tools.build_moment_main([
+                inp["traj"], "0", str(REC_FRAMES - 1), "--scene_registry",
+                inp["registry"]])
+        dt = time.perf_counter() - t0
+        if "replay OK" not in buf.getvalue():
+            raise AssertionError(f"build-moment: {buf.getvalue()}")
+        print("recorded-moment phase (%s): mvt-torch-build-moment of %d "
+              "frames: %.3f s, %.1f frames/s (host): %s"
+              % (card, REC_FRAMES, dt, REC_FRAMES / dt,
+                 buf.getvalue().strip().splitlines()[-1]))
+        cand = os.path.join(root, "candidates")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            moment_tools.auto_candidates_main([
+                os.path.dirname(inp["traj"]), cand, "--scene_registry",
+                inp["registry"], "--moment_length", "4.0", "--test_skip",
+                "5"])
+        dt = time.perf_counter() - t0
+        with open(os.path.join(cand, REC_SCENE + ".json")) as f:
+            found = json.load(f)
+        if not found or any(not c["ped_controls"] for c in found):
+            raise AssertionError(f"auto-moment-candidates: {found}")
+        print("recorded-moment phase (%s): mvt-torch-auto-moment-candidates"
+              ": %.3f s, %d candidates (host): %s"
+              % (card, dt, len(found), buf.getvalue().strip()))
+    finally:
+        sys.modules.pop("carla", None)
+    inp["names"] = names
+    return inp
+
+
+def rec_prepare(root: str, inp: dict, card: str) -> dict:
+    """(2) Frames and 36x64 scene class maps from the recordings, the
+    multi-future and anchor splits, mvt-torch-preprocess."""
+    cfg = train_config()
+    ds = inp["ds"]
+    out = {k: os.path.join(root, k) for k in (
+        "frames", "mf_scene", "train_scene", "obs", "mf", "anchor",
+        "prepro")}
+    # one extract_frames_and_seg call a video and a window: (video,
+    # frame ids, scene directory, name, start); the calls run on threads
+    # (cv2 decodes outside the GIL)
+    jobs = []
+    for key, first in zip(inp["obs_keys"], inp["mf"][::REC_FUTURES]):
+        data = prepared_data.load_frame_data(
+            os.path.join(ds, "bbox", first + ".json"))
+        needed = sorted(data)[32::10]
+        if len(needed) != cfg.seq_len:
+            raise AssertionError(f"{first}: {len(needed)} sampled frames")
+        jobs.append((first, needed[:cfg.obs_len], out["mf_scene"], key, 32))
+    windows = 0
+    for name in inp["names"]:
+        data = prepared_data.load_frame_data(
+            os.path.join(ds, "bbox", name + ".json"))
+        ids = sorted(data)[::10]
+        windows += (len(ids) - cfg.seq_len + 1) * 2
+        jobs.append((name, ids, out["train_scene"], name, 0))
+
+    def extract(job) -> bool:
+        video, ids, scene_dir, name, start = job
+        return prepared_data.extract_frames_and_seg(
+            os.path.join(ds, "videos", video + ".mp4"),
+            os.path.join(ds, "videos_seg", video + ".mp4"), ids,
+            out["frames"], os.path.join(scene_dir, name), name, start=start,
+            scene_h=cfg.scene_h, scene_w=cfg.scene_w)
+
+    import concurrent.futures
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        done = list(pool.map(extract, jobs))
+    if not all(done):
+        raise AssertionError("extract_frames_and_seg: %s" % [
+            j[3] for j, ok in zip(jobs, done) if not ok])
+    n = sum(len(j[1]) for j in jobs)
+    dt = time.perf_counter() - t0
+    segs = [np.load(os.path.join(d, f))
+            for where in (out["mf_scene"], out["train_scene"])
+            for d, _, fs in os.walk(where) for f in fs]
+    if len(segs) != n or any(s.shape != (cfg.scene_h, cfg.scene_w)
+                             or not (s == 13).all() for s in segs):
+        raise AssertionError("the recorded seg videos did not decode to "
+                             "ADE20k person (13) maps of 36x64")
+    print("recorded-moment phase (%s): extract_frames_and_seg of %d "
+          "recordings, %d calls on threads: %.3f s, %d frames + class maps, "
+          "%.1f frames/s (host)"
+          % (card, len(inp["names"]), len(jobs), dt, n, n / dt))
+    id2name = os.path.join(root, "scene_id2name.json")
+    # the top classes the published scene_class keeps, person (13) first
+    classes = [13] + [c for c in range(1, cfg.scene_class) if c != 13]
+    with open(id2name, "w") as f:
+        json.dump({"oldid2new": {str(c): i + 1 for i, c in enumerate(
+            classes[:cfg.scene_class - 1])}, "id2name": {
+                str(i + 1): "ade%d" % c for i, c in enumerate(
+                    classes[:cfg.scene_class - 1])}}, f)
+
+    t0 = time.perf_counter()
+    stats = prepared_data.prepare_multifuture_split(
+        ds, inp["mf"], out["obs"], out["mf"], "test",
+        obs_length=cfg.obs_len)
+    if stats["skipped"] or stats["num_obs"] != REC_OBS_KEYS:
+        raise AssertionError(f"prepare_multifuture_split: {stats}")
+    for key in inp["obs_keys"]:
+        with open(os.path.join(out["mf"], "test", key + ".p"), "rb") as f:
+            gt = pickle.load(f)
+        if [len(g["x_agent_traj"]) for g in gt.values()] \
+                != [cfg.pred_len] * REC_FUTURES:
+            raise AssertionError(f"{key}: GT futures")
+    for split in ("train", "val", "test"):
+        prepared_data.prepare_anchor_split(ds, inp["names"], out["anchor"],
+                                           split, drop_frame=10)
+    print("recorded-moment phase (%s): prepare_multifuture_split + "
+          "prepare_anchor_split: %.3f s (host)"
+          % (card, time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    preprocess_cli.main([os.path.join(out["anchor"], "traj_2.5fps"),
+                         out["prepro"], "--scene_feat_path",
+                         out["train_scene"], "--scene_id2name", id2name,
+                         *PREPRO_FLAGS])
+    dt = time.perf_counter() - t0
+    print("recorded-moment phase (%s): mvt-torch-preprocess: %.3f s, %d "
+          "examples in 3 splits, %.1f examples/s (host)"
+          % (card, dt, 3 * windows, 3 * windows / dt))
+    for split in ("train", "val", "test"):
+        with np.load(os.path.join(out["prepro"], "data_%s.npz" % split),
+                     allow_pickle=True) as d:
+            if len(d["obs_traj"]) != windows:
+                raise AssertionError(f"preprocess {split}: "
+                                     f"{len(d['obs_traj'])} examples")
+    out.update(id2name=id2name, windows=windows)
+    return out
+
+
+def rec_train_decode(root: str, inp: dict, out: dict, card: str) -> dict:
+    """(3) Two epochs of mvt-torch-train at the published flags on the
+    recorded data, the K = 20 bf16 and int8a decodes of its obs and
+    both evaluators. Returns the launches of K1, K3, K4 and K5."""
+    cfg = train_config()
+    rec = StepRecorder(parallel.make_sharded_train_step)
+    reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(train_cli, "make_sharded_train_step", rec):
+        result = train_cli.main([out["prepro"], os.path.join(root, "runs"),
+                                 "recorded", *REC_TRAIN_FLAGS])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = torch.stack(rec.losses).float().cpu().numpy()
+    launches = {"K4": gnn_dense_fwd.launches, "K5": gnn_dense_bwd.launches,
+                "K1": decode_step_gathered.launches, "K3": 0}
+    steps = result["steps"]
+    per_epoch = -(-out["windows"] // cfg.batch_size)
+    print("recorded-moment phase (%s): mvt-torch-train 2 epochs, %d steps "
+          "in %.3f s (%.1f examples/s, evals and saves included); losses "
+          "%s; launches K4 %d, K5 %d, eval K1 %d"
+          % (card, steps, wall, steps * cfg.batch_size / wall,
+             np.round(losses, 4).tolist(), launches["K4"], launches["K5"],
+             launches["K1"]))
+    if steps != 2 * per_epoch or len(losses) != steps \
+            or not np.isfinite(losses).all() \
+            or launches["K4"] != steps * cfg.pred_len \
+            or launches["K5"] != steps * cfg.pred_len \
+            or launches["K1"] != per_epoch * cfg.pred_len:
+        raise AssertionError(f"recorded-moment train: {steps} steps, "
+                             f"losses {losses}, launches {launches}")
+    run = os.path.join(root, "runs", "recorded", "00")
+    obs = os.path.join(out["obs"], "traj_2.5fps", "test")
+    mf = os.path.join(out["mf"], "test")
+    for tier, kernel in (("none", "K1"), ("int8a", "K3")):
+        traj_p = os.path.join(root, "%s.traj.p" % tier)
+        prob_p = os.path.join(root, "%s.prob.p" % tier)
+        reset_launches()
+        t0 = time.perf_counter()
+        inference_cli.main([os.path.join(run, "save"), obs, mf, traj_p,
+                            "--save_prob_file", prob_p, "--decode_quant",
+                            tier, "--scene_feat_path", out["mf_scene"],
+                            "--scene_id2name", out["id2name"],
+                            *PREP_DECODE_FLAGS])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ran = tier_launches(tier)
+        batches = -(-REC_OBS_KEYS // 16)
+        if ran != batches * cfg.pred_len:
+            raise AssertionError(f"recorded-moment {tier} decode: {kernel} "
+                                 f"ran {ran} times")
+        launches[kernel] += ran
+        with open(traj_p, "rb") as f:
+            trajs = pickle.load(f)
+        if sorted(trajs) != sorted(inp["obs_keys"]) or any(
+                np.asarray(t).shape != (20, cfg.pred_len, 2)
+                or not np.isfinite(np.asarray(t)).all()
+                for t in trajs.values()):
+            raise AssertionError(f"the recorded-moment {tier} pickles")
+        ade_fde = scores(eval_trajs_cli.main, [mf, traj_p])
+        nll = scores(eval_prob_cli.main, [mf, prob_p])
+        print("recorded-moment phase (%s): mvt-torch-multifuture-inference "
+              "%s K = 20 on the %d recorded obs: %.3f s (load included), %s "
+              "ran %d times (%d batches x T %d); minADE/minFDE %s, NLL %s"
+              % (card, tier, REC_OBS_KEYS, dt, kernel, ran, batches,
+                 cfg.pred_len, ade_fde, nll))
+        if len(ade_fde) != 6 or len(nll) != 5 \
+                or not np.isfinite([ade_fde[i] for i in (0, 2, 3, 5)]
+                                   + nll).all():
+            raise AssertionError(f"the recorded-moment {tier} scores")
+    return launches
+
+
+def rec_numpy_segmenter(img: np.ndarray) -> np.ndarray:
+    return (img.astype(np.int32).sum(axis=2) % 11).astype(np.uint8)
+
+
+def rec_scene_seg(root: str, frames: list, card: str) -> None:
+    """(4) mvt-torch-extract-scene-seg's segment_images over the recorded
+    RGB frames with a fixed numpy segmenter; every npy checked."""
+    import cv2
+
+    from multiverse_torch.data import scene_extract
+
+    t0 = time.perf_counter()
+    written = scene_extract.segment_images(
+        frames, rec_numpy_segmenter, os.path.join(root, "seg_numpy"),
+        save_two_level=True)
+    dt = time.perf_counter() - t0
+    if len(written) != len(frames):
+        raise AssertionError("segment_images wrote %d of %d"
+                             % (len(written), len(frames)))
+    for img_file, npy in zip(frames, written):
+        want = scene_extract.resize_seg_map(rec_numpy_segmenter(
+            cv2.cvtColor(cv2.imread(img_file), cv2.COLOR_BGR2RGB)), 8.0)
+        got = np.load(npy)
+        if got.dtype != np.uint8 or got.shape != want.shape \
+                or not np.array_equal(got, want):
+            raise AssertionError(f"segment_images: {npy}")
+    print("recorded-moment phase (%s): segment_images (numpy segmenter) of "
+          "%d recorded %dx%d frames: %.3f s, %.1f frames/s (host)"
+          % (card, len(frames), REC_W, REC_H, dt, len(frames) / dt))
+
+
+OPTIONAL_ABSENT = 3
+
+
+def optional_worker(package: str, root: str, imglst: str) -> int:
+    """A subprocess of phase 15 that runs what needs one optional host
+    package: ``tensorflow`` (mvt-torch-extract-scene-seg on a one-op
+    DeepLab graph, the card hidden), ``transformers`` (the same command
+    on a random SegFormer, on cuda and on cpu) or ``pygame`` (the
+    spectator and the moment editor over the fake backend, SDL's dummy
+    driver). Returns OPTIONAL_ABSENT, having printed why, where the
+    package does not import; raises on any other failure."""
+    for name in ("jax", "jaxlib", "multiverse_tpu"):
+        sys.modules[name] = None
+    os.environ.setdefault("USE_TF", "0")
+    os.environ.setdefault("USE_FLAX", "0")
+    os.environ.setdefault("SDL_VIDEODRIVER", "dummy")
+    os.environ.setdefault("SDL_AUDIODRIVER", "dummy")
+    try:
+        mod = importlib.import_module(package)
+        if package == "transformers":
+            # the SegFormer backend's image processor has optional
+            # packages of its own (torchvision, from transformers 5)
+            mod.SegformerImageProcessor()
+    except ImportError as e:
+        print("recorded-moment phase: %s, or a package it needs here, does "
+              "not import on this host: %s" % (package, " ".join(
+                  str(e).split())))
+        return OPTIONAL_ABSENT
+    print("recorded-moment phase: %s %s" % (package,
+                                            getattr(mod, "__version__", "")))
+    if package == "transformers":
+        # started beside the training: the card is ours from this line on
+        sys.stdin.readline()
+    with open(imglst) as f:
+        frames = [line.strip() for line in f if line.strip()]
+    if package == "tensorflow":
+        rec_deeplab(mod, root, imglst, frames)
+    elif package == "transformers":
+        rec_segformer(root, imglst, frames)
+    else:
+        rec_pygame(root)
+    return 0
+
+
+def rec_deeplab(tf, root: str, imglst: str, frames: list) -> None:
+    import cv2
+
+    graph = tf.Graph()
+    with graph.as_default():
+        image = tf.compat.v1.placeholder(tf.uint8, [1, None, None, 3],
+                                         name="ImageTensor")
+        tf.argmax(image, axis=3, name="SemanticPredictions")
+    pb = os.path.join(root, "deeplab_one_op.pb")
+    with open(pb, "wb") as f:
+        f.write(graph.as_graph_def().SerializeToString())
+    out = os.path.join(root, "seg_deeplab")
+    t0 = time.perf_counter()
+    prepare_cli.extract_scene_seg_main([imglst, pb, out])
+    dt = time.perf_counter() - t0
+    for img_file in frames:
+        name = os.path.splitext(os.path.basename(img_file))[0]
+        got = np.load(os.path.join(out, name + ".npy"))
+        img = cv2.imread(img_file)
+        if got.shape != (img.shape[0] // 8, img.shape[1] // 8) \
+                or got.max() > 2:
+            raise AssertionError(f"the DeepLab graph's map of {name}")
+    print("recorded-moment phase: mvt-torch-extract-scene-seg, one-op "
+          "DeepLab graph (tensorflow, host): %d frames in %.3f s, %.3f s a "
+          "frame (host)" % (len(frames), dt, dt / len(frames)))
+
+
+def rec_segformer(root: str, imglst: str, frames: list) -> None:
+    from transformers import (
+        SegformerConfig,
+        SegformerForSemanticSegmentation,
+        SegformerImageProcessor,
+    )
+
+    path = os.path.join(root, "segformer")
+    torch.manual_seed(0)
+    SegformerForSemanticSegmentation(SegformerConfig(
+        num_encoder_blocks=2, depths=[1, 1], sr_ratios=[2, 1],
+        hidden_sizes=[16, 32], num_attention_heads=[1, 2],
+        decoder_hidden_size=32, num_labels=150, patch_sizes=[7, 3],
+        strides=[4, 2], mlp_ratios=[2, 2])).eval().save_pretrained(path)
+    SegformerImageProcessor().save_pretrained(path)
+    maps = {}
+    for device in REC_SEGFORMER_DEVICES:
+        out = os.path.join(root, "seg_segformer_" + device)
+        # one frame first: the model's load and first call, untimed
+        prepare_cli.extract_scene_seg_main([
+            imglst, path, out + "_first", "--every", str(len(frames)),
+            "--device", device])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prepare_cli.extract_scene_seg_main([imglst, path, out, "--device",
+                                            device])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        maps[device] = [np.load(os.path.join(out, os.path.splitext(
+            os.path.basename(f))[0] + ".npy")) for f in frames]
+        if any(m.dtype != np.uint8 or m.min() < 1 or m.max() > 150
+               for m in maps[device]):
+            raise AssertionError(f"SegFormer maps on {device}")
+        print("recorded-moment phase: mvt-torch-extract-scene-seg, random "
+              "SegFormer (transformers) on %s: %d frames in %.3f s, %.4f s "
+              "a frame" % (device, len(frames), dt, dt / len(frames)))
+    first, *others = REC_SEGFORMER_DEVICES
+    for device in others:
+        same = np.mean([np.mean(a == b) for a, b in zip(maps[first],
+                                                         maps[device])])
+        print("recorded-moment phase: SegFormer class maps on %s equal to "
+              "those on %s in %.6f of pixels (information, not a gate)"
+              % (first, device, same))
+
+
+def rec_pygame(root: str) -> None:
+    import pygame
+
+    sys.path.insert(0, TESTS_DIR)
+    import torch_fake_carla
+
+    from multiverse_torch.forking_paths import interactive
+
+    torch_fake_carla.install()
+    shots = os.path.join(root, "spectator")
+    t0 = time.perf_counter()
+    interactive.spectator_main([
+        "--width", str(REC_W), "--height", str(REC_H), "--go_to_anchor",
+        REC_SCENE, "--save_screenshot_path", shots, "--max_ticks", "5"])
+    dt = time.perf_counter() - t0
+    print("recorded-moment phase: mvt-torch-spectator at %dx%d, 5 ticks "
+          "(pygame %s, SDL dummy driver): %.3f s (host)"
+          % (REC_W, REC_H, pygame.version.ver, dt))
+    moments = []
+    for name in sorted(os.listdir(root)):
+        if name.startswith(REC_SCENE + "_") and name.endswith(".json"):
+            with open(os.path.join(root, name)) as f:
+                moments += json.load(f)
+    client = sys.modules["carla"].Client()
+    t0 = time.perf_counter()
+    saved = interactive.run_moment_editor(
+        client, moments, os.path.join(root, "edited.json"), width=REC_W,
+        height=REC_H, max_ticks=5)
+    dt = time.perf_counter() - t0
+    if len(saved) != len(moments):
+        raise AssertionError("moment editor: %d of %d moments saved"
+                             % (len(saved), len(moments)))
+    print("recorded-moment phase: the moment editor on the %d recorded "
+          "moments at %dx%d, 5 ticks: %.3f s (host)"
+          % (len(moments), REC_W, REC_H, dt))
+
+
+def optional_process(package: str, root: str, imglst: str,
+                     hide_card: bool):
+    """Start :func:`optional_worker` for ``package`` in a subprocess."""
+    env = dict(os.environ)
+    if hide_card:
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    code = ("import sys, chip_smoke; sys.exit(chip_smoke.optional_worker("
+            "%r, %r, %r))" % (package, root, imglst))
+    return subprocess.Popen(
+        [sys.executable, "-c", code], cwd=os.path.dirname(
+            os.path.abspath(__file__)), env=env, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def optional_result(package: str, proc, card: str, timeout: float) -> None:
+    """Let ``proc`` (``optional_process``) go on, wait for it and print
+    what it said; raises if it failed."""
+    out, _ = proc.communicate("go\n", timeout=timeout)
+    lines = [line for line in out.splitlines()
+             if line.startswith("recorded-moment phase")]
+    for line in lines:
+        print(line.replace("recorded-moment phase:",
+                           "recorded-moment phase (%s):" % card, 1))
+    if proc.returncode == OPTIONAL_ABSENT:
+        print("recorded-moment phase: not run: the %s part (%s), as %s or "
+              "a package it needs does not import on this host" % (package, {
+                  "tensorflow": "the one-op DeepLab graph",
+                  "transformers": "the random SegFormer on cuda and cpu",
+                  "pygame": "the spectator and the moment editor"}[package],
+                  package))
+    elif proc.returncode != 0:
+        raise AssertionError("recorded-moment phase: the %s part failed "
+                             "(exit %d):\n%s" % (package, proc.returncode,
+                                                 out[-4000:]))
+
+
+def recorded_moment_phase(dev, tmp: str, card: str) -> dict:
+    """Phase 15 (see the module docstring). Returns the launches of K1,
+    K3, K4 and K5."""
+    import cv2
+
+    t_phase = time.perf_counter()
+    print("recorded-moment phase: cv2 %s" % cv2.__version__)
+    root = os.path.join(tmp, "recorded")
+    os.makedirs(root)
+    inp = rec_record(root, card)
+    out = rec_prepare(root, inp, card)
+    frames = sorted(os.path.join(out["frames"], f)
+                    for f in os.listdir(out["frames"]))
+    imglst = os.path.join(root, "segformer_frames.lst")
+    with open(imglst, "w") as f:
+        f.write("\n".join(frames[:REC_SEGFORMER_FRAMES]) + "\n")
+    # the optional packages' parts start now, the host ones run beside
+    # the training; the transformers one imports beside it and waits
+    host = {p: optional_process(p, root, imglst, p != "transformers")
+            for p in ("tensorflow", "pygame", "transformers")}
+    try:
+        t0 = time.perf_counter()
+        launches = rec_train_decode(root, inp, out, card)
+        print("recorded-moment phase (%s): train + decodes + scores %.3f s"
+              % (card, time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        rec_scene_seg(root, frames[::REC_SEG_EVERY], card)
+        for package, proc in host.items():
+            optional_result(package, proc, card, 600)
+        print("recorded-moment phase (%s): scene-seg and the optional "
+              "packages' parts %.3f s" % (card, time.perf_counter() - t0))
+    finally:
+        for proc in host.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print("recorded-moment phase (%s): %.3f s whole (host figures of the "
+          "card's machine)" % (card, time.perf_counter() - t_phase))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4589,6 +5282,10 @@ def main() -> int:
                 or "spill" in line or "Performance Loss" in line:
             print("  ptxas:", line.strip())
 
+    if sys.argv[1:2] == ["--recorded-only"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            recorded_moment_phase(dev, tmp, smi.stdout.strip())
+        return 0
     cfg = flagship_config()
     model = Multiverse.init(cfg, seed=0, device=dev)
     if sys.argv[1:2] == ["--gnn-only"]:
@@ -4670,6 +5367,11 @@ def main() -> int:
                                              smi.stdout.strip()).items():
             launches[k] += n
     elapsed("checkpoint-writing phase")
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, n in recorded_moment_phase(dev, tmp,
+                                          smi.stdout.strip()).items():
+            launches[k] += n
+    elapsed("recorded-moment phase")
     for k, fn in PATHLESS.items():
         launches[k] = fn.launches
     print("main path launches of K6, K8, K9 (no path of the port or of the "

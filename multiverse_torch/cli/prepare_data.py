@@ -16,6 +16,8 @@ points:
                                    get_prepared_data_sdd.py
     mvt-torch-prepare-argoverse    reference: SimAug/code/
                                    get_prepared_data_argoverse.py
+    mvt-torch-extract-scene-seg    reference: SimAug/code/
+                                   extract_scene_seg.py
     mvt-torch-combine-traj         reference: forking_paths_dataset/
                                    code/combine_traj.py
     mvt-torch-gen-moments          reference: forking_paths_dataset/
@@ -31,8 +33,10 @@ points:
 
 ``mvt-torch-sdd-frames`` and ``mvt-torch-resize-rotate-sdd`` decode
 video with ``cv2``, ``mvt-torch-get-vehicle-traj`` reads VIRAT YAML
-with ``yaml``: where the package is missing they stop as they start,
-with an ``ImportError`` that names it and the command.
+with ``yaml``, ``mvt-torch-extract-scene-seg`` reads images with
+``cv2`` and runs ``tensorflow`` (a ``.pb``) or ``transformers`` (a
+SegFormer directory): where the package is missing they stop as they
+start, with an ``ImportError`` that names it and the command.
 """
 
 from __future__ import annotations
@@ -180,6 +184,48 @@ def prepare_argoverse_main(argv=None) -> None:
                   "skipped" % video_id)
         total += n
     print("wrote %d trajectory rows" % total)
+
+
+def extract_scene_seg_main(argv=None) -> None:
+    """Frame jpgs -> downsampled scene class-map npys (reference:
+    SimAug/code/extract_scene_seg.py). A ``.pb`` model is a DeepLab
+    frozen graph run by tensorflow on the host; anything else is a
+    SegFormer directory run by transformers on ``--device``."""
+    from multiverse_torch.data.scene_extract import (
+        make_segformer_segmenter,
+        make_tf_deeplab_segmenter,
+        segment_images,
+    )
+
+    parser = argparse.ArgumentParser(prog="mvt-torch-extract-scene-seg")
+    parser.add_argument("imglst")
+    parser.add_argument("model_path",
+                        help="DeepLab frozen .pb or a SegFormer dir")
+    parser.add_argument("out_path")
+    parser.add_argument("--down_rate", type=float, default=8.0)
+    parser.add_argument("--keep_full", action="store_true")
+    parser.add_argument("--save_two_level", action="store_true")
+    parser.add_argument("--every", type=int, default=1)
+    parser.add_argument("--job", type=int, default=1)
+    parser.add_argument("--curJob", type=int, default=1)
+    parser.add_argument("--device", default="cuda",
+                        help="where the SegFormer model runs")
+    args = parser.parse_args(argv)
+    require_package("cv2", parser.prog)
+    if args.model_path.endswith(".pb"):
+        require_package("tensorflow", parser.prog)
+        segmenter = make_tf_deeplab_segmenter(args.model_path)
+    else:
+        require_package("transformers", parser.prog)
+        segmenter = make_segformer_segmenter(args.model_path,
+                                             device=args.device)
+    files = [line.strip() for line in open(args.imglst) if line.strip()]
+    written = segment_images(
+        files, segmenter, args.out_path,
+        down_rate=args.down_rate, keep_full=args.keep_full,
+        save_two_level=args.save_two_level, every=args.every,
+        job=args.job, cur_job=args.curJob)
+    print("wrote %d seg maps" % len(written))
 
 
 def combine_traj_main(argv=None) -> None:

@@ -281,20 +281,25 @@ def test_port_never_imports_jax():
     committed orbax checkpoint of the JAX package (equal to the leaves
     made from its seed), one ``CheckpointManager.save`` read back equal,
     and ``mvt-torch-convert-tf`` of the committed TF bundle (equal to the
-    leaves made from its seed). With cv2 and yaml unimportable too, the
-    data-preparation modules import,
+    leaves made from its seed). With cv2, yaml, pygame and transformers
+    unimportable too, the data-preparation modules import,
     mvt-torch-prepare-multifuture prepares a tiny bbox-JSON dataset, and
     mvt-torch-sdd-frames and mvt-torch-get-vehicle-traj stop with an
     ImportError naming cv2 and yaml; the plotting modules (``vis``,
     ``vis.trajs`` and the five ``mvt-torch-vis-*`` CLI modules) import,
     and mvt-torch-vis-grid and mvt-torch-batch-plot-traj-carla parse
     their arguments and stop with an ImportError naming cv2 and the
-    command, having written no file."""
+    command, having written no file; the CARLA toolkit's modules import
+    (camera, scenes, sim, candidates, annotation, editor, recorder,
+    interactive, the moment commands), a camera projection, the packaged
+    registry and a planned frame run, ``replay_moment`` replays a moment
+    through ``tests/torch_fake_carla.py`` and mvt-torch-spectator stops
+    with an ImportError naming pygame; so do scene_extract and flops."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for name in ('jax', 'jaxlib', 'multiverse_tpu', 'orbax',\n"
         "             'tensorstore', 'zstandard', 'tensorflow', 'cv2',\n"
-        "             'yaml'):\n"
+        "             'yaml', 'pygame', 'transformers'):\n"
         "    sys.modules[name] = None      # any import of them raises\n"
         "import multiverse_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
@@ -350,7 +355,12 @@ def test_port_never_imports_jax():
         "             'cli.convert_tf', 'vis', 'vis.trajs',\n"
         "             'cli.visualize_output', 'cli.visualize_grid',\n"
         "             'cli.vis_multifuture_trajs_video', 'cli.vis_dataset',\n"
-        "             'cli.vis_real_data'):\n"
+        "             'cli.vis_real_data', 'forking_paths.camera',\n"
+        "             'forking_paths.scenes', 'forking_paths.sim',\n"
+        "             'forking_paths.candidates', 'forking_paths.annotation',\n"
+        "             'forking_paths.editor', 'forking_paths.recorder',\n"
+        "             'forking_paths.interactive', 'cli.moment_tools',\n"
+        "             'data.scene_extract', 'flops'):\n"
         "    assert 'multiverse_torch.' + name in names, name\n"
         "import dataclasses\n"
         "from multiverse_torch.data import multiview\n"
@@ -470,10 +480,42 @@ def test_port_never_imports_jax():
         "        else:\n"
         "            raise AssertionError('no ImportError for ' + command)\n"
         "        assert os.listdir(tmp) == [], os.listdir(tmp)\n"
+        "from multiverse_torch.forking_paths import (camera, candidates,\n"
+        "                                            controls, scenes, sim)\n"
+        "rig = camera.CameraRig(camera.Transform(x=-15.0, z=3.0), 64, 48, 90.0)\n"
+        "uvd = camera.project_points(np.array([[0.0, 0.0, 0.5]]), rig)\n"
+        "assert uvd[0, 2] > 0\n"
+        "reg = scenes.load_default_registry()\n"
+        "assert len(reg.recording_cameras('0400')) == 4\n"
+        "ped = controls.traj_to_controls(np.asarray(\n"
+        "    [[0, 1, 0, 0, 0.5], [5, 1, 1, 0, 0.5], [10, 1, 2, 0, 0.5]],\n"
+        "    np.float64), -1, -1, 25.0)[0]\n"
+        "state = sim.SimState()\n"
+        "assert [c.kind for c in sim.plan_frame(0, ped, {}, state)] == [\n"
+        "    'spawn_walker', 'walker_control']\n"
+        "import torch_fake_carla\n"
+        "carla = torch_fake_carla.install()\n"
+        "client = carla.Client()\n"
+        "world = client.get_world()\n"
+        "lib = world.get_blueprint_library()\n"
+        "assert candidates.replay_moment(\n"
+        "    client, world, (lib.filter('walker.pedestrian.*'), [0]),\n"
+        "    (lib.filter('vehicle.*'), [0]), ped, {}, start_frame=0,\n"
+        "    total_frames=10) == (True, '', False)\n"
+        "assert world.frame == 10\n"
+        "from multiverse_torch.forking_paths import interactive\n"
+        "try:\n"
+        "    interactive.spectator_main(['--max_ticks', '1'])\n"
+        "except ImportError as e:\n"
+        "    assert e.name == 'pygame' and 'mvt-torch-spectator' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('no ImportError for pygame')\n"
+        "del sys.modules['carla']\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
         "             and m.startswith(('jax', 'multiverse_tpu', 'orbax',\n"
         "                               'tensorstore', 'zstandard', 'cv2',\n"
-        "                               'yaml')))\n"
+        "                               'yaml', 'pygame', 'transformers',\n"
+        "                               'tensorflow')))\n"
         "print('MODULES', len(names), 'JAX_MODULES', bad)\n"
         "sys.exit(1 if bad or len(names) < 20 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
