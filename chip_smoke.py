@@ -351,6 +351,28 @@
    why; a failure of a part that ran fails the phase. (5) Each stage prints its host seconds and frames/s
    or examples/s beside the card's name and power limit, and the phase
    its total. Its K1, K3, K4 and K5 launches are added to the paths'.
+16. Convergence-campaign phase (``multiverse_torch/campaign``), last, in
+   a temporary directory of its own: both campaigns at the published
+   flags (full width, bf16, on cuda), cut only in data and epochs
+   (CAMP_FLAGSHIP, CAMP_SIMAUG). The flagship's stages through its
+   ``main``: data (moments recorded through ``tests/torch_fake_carla.py``
+   at 192x108, extracted, prepared, preprocessed), run A, run B
+   SIGKILLed at the first save of epoch CAMP_EPOCHS // 2 and resumed
+   with ``--load``, the f32 and int8a K = 20 decodes of A's best with
+   both evaluators, and the artifact; then SimAug's data, train and
+   artifact. Every command a stage starts runs as ``chip_smoke.py
+   --counted`` (below), so each reports its kernels' launches. Checks
+   that every command exits 0, that each train command launched K4 and
+   K5 12 times a step and grid scale (twice that a SimAug step) and K1
+   in its evals, that the int8a decode launched K3 batches x T times and
+   the f32 decode no kernel, that run A's final val ADE is below its
+   first eval's, that run B's evals after its loaded baseline (at the
+   kill step) and its last save lie above the kill step, and that every
+   score is finite; prints the convergence fields, the resume check,
+   each command's launches, each stage's seconds, and the int8a decode's
+   beam ids against the f32 one on A's best (``tier_agreement``, which
+   informs and does not gate). Its K1, K3, K4 and K5 launches are added
+   to the paths'.
 
 Prints one JSON line describing the kernels, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero;
@@ -371,12 +393,27 @@ and K5 the same way.
     python3 chip_smoke.py --recorded-only
 
 builds the kernels and runs only the recorded-moment phase (15.).
+
+    python3 chip_smoke.py --campaign-only
+
+builds the kernels and runs only the convergence-campaign phase (16.).
+
+    python3 chip_smoke.py --tier-agreement <flagship work directory>
+
+prints ``tier_agreement`` of a flagship campaign's run A (the full
+campaign's ``_campaign_torch/``).
+
+    python3 chip_smoke.py --counted <file> <module> <args>
+
+runs ``module``'s ``main(args)`` and appends its kernels' launches to
+``file`` (the form phase 16's commands take).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import importlib.util
 import io
 import json
@@ -415,6 +452,8 @@ from multiverse_torch.cli import visualize_grid as vis_grid_cli
 from multiverse_torch.cli import visualize_output as vis_output_cli
 from multiverse_torch.config import MultiverseConfig
 from multiverse_torch import parallel
+from multiverse_torch.campaign import flagship as camp_flagship
+from multiverse_torch.campaign import simaug as camp_simaug
 from multiverse_torch.bridge import (
     params_from_jax,
     params_to_numpy_tree,
@@ -5252,7 +5291,267 @@ def recorded_moment_phase(dev, tmp: str, card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------- convergence campaigns
+
+# phase 16: both campaigns (multiverse_torch/campaign) at the published
+# flags, cut only in data and epochs; run B of the flagship is SIGKILLed
+# at the first save of epoch CAMP_EPOCHS // 2 and resumed. Every command
+# a stage starts runs through ``chip_smoke.py --counted``, which appends
+# its kernels' launches to a file when the command ends.
+CAMP_EPOCHS = 4
+CAMP_FLAGSHIP = ["--train_moments", "2", "--val_moments", "1",
+                 "--test_moments", "1", "--mf_groups", "4",
+                 "--epochs", str(CAMP_EPOCHS)]
+CAMP_SIMAUG = ["--train_moments", "1", "--peds", "5", "--epochs", "2"]
+COUNTED = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")
+
+
+def counted_command(counts: str, module: str, argv: list) -> int:
+    """``chip_smoke.py --counted <file> <module> <args>``: run
+    ``module``'s ``main(args)`` in this process with every launch count
+    at 0, then append one JSON line to ``file``: the module, its steps
+    (a trainer's) and each kernel's launches. A process killed before
+    its end appends nothing."""
+    reset_launches()
+    for fn in PATHLESS.values():
+        fn.launches = 0
+    result = None
+    try:
+        result = importlib.import_module(module).main(argv)
+    finally:
+        q8 = decode_step_gathered_q8.launches
+        line = {"module": module,
+                "steps": (result or {}).get("steps")
+                if isinstance(result, dict) else None,
+                "K1": decode_step_gathered.launches, "K2": q8["int8"],
+                "K3": q8["int8a"], "K4": gnn_dense_fwd.launches,
+                "K5": gnn_dense_bwd.launches,
+                "K7": decode_step_gathered_q8dyn.launches,
+                **{k: fn.launches for k, fn in PATHLESS.items()}}
+        with open(counts, "a") as f:
+            f.write(json.dumps(line) + "\n")
+    return 0
+
+
+def campaign_stage(what: str, card: str, main, argv: list, log: str):
+    """One stage of a campaign through its ``main``, its printed lines
+    to ``log``; prints its seconds."""
+    t0 = time.perf_counter()
+    with open(log, "a") as f, contextlib.redirect_stdout(f):
+        main(argv)
+    dt = time.perf_counter() - t0
+    print("campaign phase (%s): %s %.3f s" % (card, what, dt))
+    return dt
+
+
+def read_counts(path: str) -> list:
+    """The lines ``--counted`` commands appended to ``path`` so far."""
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def campaign_phase(dev, tmp: str, card: str) -> dict:
+    """Phase 16 (see the module docstring). Returns the launches of K1,
+    K3, K4 and K5."""
+    flagship, simaug = camp_flagship, camp_simaug
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "campaign")
+    os.makedirs(root)
+    counts = os.path.join(root, "counts.jsonl")
+    log = os.path.join(root, "stages.log")
+
+    def counted(module):
+        return [sys.executable, os.path.abspath(__file__), "--counted",
+                counts, module]
+
+    launches = dict.fromkeys(("K1", "K3", "K4", "K5"), 0)
+    work = os.path.join(root, "flagship")
+    common = ["--work", work, "--device", dev.type, *CAMP_FLAGSHIP]
+    with mock.patch.object(flagship, "python_module", counted), \
+            mock.patch.object(simaug, "python_module", counted):
+        for stage in ("data", "train", "resume", "infer", "artifact"):
+            start = len(read_counts(counts))
+            campaign_stage("flagship " + stage, card, flagship.main,
+                           [stage, *common, "--out",
+                            os.path.join(root, "curve.json")], log)
+            ran = read_counts(counts)[start:]
+            for line in ran:
+                print("campaign phase (%s): flagship %s: %s steps %s, "
+                      "launches %s" % (card, stage, line["module"],
+                                       line["steps"],
+                                       {k: line[k] for k in COUNTED
+                                        if line[k]}))
+            campaign_launches(stage, ran, work, launches)
+        with open(os.path.join(root, "curve.json")) as f:
+            curve = json.load(f)
+        campaign_checks(curve, work, card)
+        tier_agreement(work, dev, card)
+
+        swork = os.path.join(root, "simaug")
+        start = len(read_counts(counts))
+        for stage in ("data", "train", "artifact"):
+            campaign_stage("simaug " + stage, card, simaug.main,
+                           [stage, "--work", swork, "--device", dev.type,
+                            *CAMP_SIMAUG, "--out",
+                            os.path.join(root, "simaug_curve.json")], log)
+        (line,) = read_counts(counts)[start:]
+        with open(os.path.join(swork, "meta.json")) as f:
+            spe = json.load(f)["steps_per_epoch"]
+        # the attack's tower pass and the outer one, a grid scale each
+        want = line["steps"] * 12 * 2 * grid_scales(simaug.SIMAUG_MODEL)
+        print("campaign phase (%s): simaug train %d steps, launches %s "
+              "(K4, K5 want steps x 12 x 2 = %d)"
+              % (card, line["steps"], {k: line[k] for k in COUNTED
+                                       if line[k]}, want))
+        if line["steps"] != 2 * spe or line["K4"] != want \
+                or line["K5"] != want or not line["K1"]:
+            raise AssertionError(f"the simaug campaign's launches: {line}")
+        for k in launches:
+            launches[k] += line[k]
+    with open(os.path.join(root, "simaug_curve.json")) as f:
+        sim = json.load(f)
+    conv = sim["convergence"]
+    print("campaign phase (%s): simaug convergence %s" % (card,
+                                                          json.dumps(conv)))
+    if not (np.isfinite([conv["first_eval"], conv["final_eval"],
+                         conv["loss_first"], conv["loss_final"]]).all()
+            and len(sim["curve"]) == 2):
+        raise AssertionError(f"the simaug campaign's curve: {sim['curve']}")
+    print("campaign phase (%s): launches %s; %.3f s whole"
+          % (card, launches, time.perf_counter() - t_phase))
+    return launches
+
+
+def grid_scales(flags: list) -> int:
+    """The grid scales a command's ``--use_grids`` turns on."""
+    return flags[flags.index("--use_grids") + 1].split(",").count("1")
+
+
+def campaign_launches(stage: str, ran: list, work: str,
+                      launches: dict) -> None:
+    """Every train command launched K4 and K5 12 times a step and grid
+    scale and its evals K1; the int8a decode K3 (T times a batch) and
+    the f32 decode no kernel. Adds them to ``launches``."""
+    meta = {}
+    if os.path.exists(os.path.join(work, "meta.json")):
+        with open(os.path.join(work, "meta.json")) as f:
+            meta = json.load(f)
+    want_modules = {"data": [], "artifact": [],
+                    "train": ["multiverse_torch.cli.train"],
+                    # the killed process appends nothing
+                    "resume": ["multiverse_torch.cli.train"],
+                    "infer": ["multiverse_torch.cli.multifuture_inference",
+                              "multiverse_torch.cli.multifuture_eval_trajs",
+                              "multiverse_torch.cli."
+                              "multifuture_eval_trajs_prob"] * 2}[stage]
+    if [line["module"] for line in ran] != want_modules:
+        raise AssertionError(f"campaign {stage}: commands {ran}")
+    for line in ran:
+        if line["module"] == "multiverse_torch.cli.train":
+            # one class decode a grid scale, pred_len steps each
+            want = line["steps"] * 12 * grid_scales(
+                camp_flagship.FLAGSHIP_MODEL)
+            if not line["steps"] or line["K4"] != want \
+                    or line["K5"] != want or not line["K1"]:
+                raise AssertionError(f"campaign {stage}: launches {line}")
+        if line["module"] == "multiverse_torch.cli.multifuture_inference":
+            decodes = [x for x in ran if x["module"] == line["module"]]
+            # T: the longest ground-truth future of the test obs
+            gt_dir = os.path.join(meta["mf_out"], "test")
+            T = 0
+            for name in os.listdir(gt_dir):
+                with open(os.path.join(gt_dir, name), "rb") as f:
+                    T = max([T] + [len(fut["x_agent_traj"])
+                                   for fut in pickle.load(f).values()])
+            batches = -(-meta["n_mf_obs"] // 16)
+            want_k3 = 0 if line is decodes[0] else batches * T
+            if line["K3"] != want_k3 or line["K1"] or line["K2"] \
+                    or line["K7"]:
+                raise AssertionError(f"campaign {stage}: decode {line}")
+        for k in launches:
+            launches[k] += line[k]
+
+
+def campaign_checks(curve: dict, work: str, card: str) -> None:
+    """The flagship artifact: the final val ADE below the first eval's,
+    run B's saves above its kill step, every score finite."""
+    conv, res = curve["convergence"], curve["resume_check"]
+    run_b = curve["run_B_resume"]
+    print("campaign phase (%s): flagship convergence %s" % (
+        card, json.dumps(conv)))
+    print("campaign phase (%s): flagship resume %s; killed at step %d, "
+          "run B's evals at %s" % (card, json.dumps(res),
+                                   run_b["killed_at_step"],
+                                   [c["step"] for c in run_b["curve"]]))
+    if not conv["final_eval"] < conv["first_eval"]:
+        raise AssertionError(f"the flagship campaign did not learn: {conv}")
+    killed = run_b["killed_at_step"]
+    steps_b = [c["step"] for c in run_b["curve"]]
+    saved = camp_flagship.saved_steps(os.path.join(work, "runs", "campB", "00", "save"))
+    if steps_b[0] != killed or run_b["curve"][0]["loss_ma"] is not None \
+            or not all(s > killed for s in steps_b[1:]) \
+            or len(steps_b) < 2 or not saved or saved[-1] <= killed:
+        raise AssertionError(f"run B's resume: killed at {killed}, evals "
+                             f"at {steps_b}, saves {saved}")
+    for tier, res_t in curve["final_inference"].items():
+        vals = [res_t["ours"][i] for i in (0, 2, 3, 5)] + res_t["nll"]
+        print("campaign phase (%s): flagship decode %s: minADE/minFDE %s, "
+              "NLL %s" % (card, tier, res_t["ours"], res_t["nll"]))
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"campaign {tier} scores: {res_t}")
+    if sorted(curve["final_inference"]) != ["f32", "serving"]:
+        raise AssertionError(f"campaign tiers: {curve['final_inference']}")
+
+
+def tier_agreement(work: str, dev, card: str) -> dict:
+    """Beam ids of the int8a decode (bf16, K3) against the f32 one (the
+    plain path) on run A's best checkpoint of a flagship campaign's work
+    directory, every test obs at K = 20, with each tier's minADE and
+    minFDE (all futures) from the campaign's scores where it has them
+    (information: the tiers on trained weights)."""
+    with open(os.path.join(work, "meta.json")) as f:
+        meta = json.load(f)
+    cfg = flagship_config(video_h=camp_flagship.CAM_H,
+                          video_w=camp_flagship.CAM_W)
+    tiers = {"f32": cfg.replace(compute_dtype="float32"),
+             "int8a": cfg.replace(decode_quant="int8a")}
+    inputs = inference.load_multifuture_inputs(
+        os.path.join(meta["obs_out"], "traj_2.5fps", "test"),
+        os.path.join(meta["mf_out"], "test"), meta["mf_scene"],
+        meta["id2name"], cfg)
+    model = load_checkpoint(os.path.join(work, "runs", "campA", "00",
+                                         "best"),
+                            Multiverse.init(cfg)).to(dev)
+    T = int(inputs.pred_lengths.max())
+    same, top = [], []
+    for start in range(0, len(inputs.traj_ids), 16):
+        idx = np.arange(start, min(start + 16, len(inputs.traj_ids)))
+        batch = batch_to_device(inference.make_batch(inputs, idx, cfg), dev)
+        with torch.inference_mode():
+            ids = {t: inference.beam_forward(model, batch, c, T_pred=T)[0]
+                   .ids.cpu().numpy() for t, c in tiers.items()}
+        for n, length in enumerate(batch.pred_length.cpu().numpy()):
+            a, b = (ids[t][n, :, :length] for t in tiers)
+            same.append((a == b).ravel())
+            top.append(bool((a[0] == b[0]).all()))
+    out = {"obs": len(inputs.traj_ids), "beam_id_share": float(
+        np.mean(np.concatenate(same))), "top_beam_share": float(np.mean(top))}
+    infer = os.path.join(work, "infer.json")
+    if os.path.exists(infer):
+        with open(infer) as f:
+            scores = json.load(f)
+        out.update({t: {"minADE_all": s["ours"][2], "minFDE_all": s["ours"][5]}
+                    for t, s in scores.items()})
+    print("campaign phase (%s): int8a against f32 on run A's best: %s"
+          % (card, json.dumps(out)))
+    return out
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--counted"]:
+        return counted_command(sys.argv[2], sys.argv[3], sys.argv[4:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -5285,6 +5584,13 @@ def main() -> int:
     if sys.argv[1:2] == ["--recorded-only"]:
         with tempfile.TemporaryDirectory() as tmp:
             recorded_moment_phase(dev, tmp, smi.stdout.strip())
+        return 0
+    if sys.argv[1:2] == ["--tier-agreement"]:
+        tier_agreement(sys.argv[2], dev, smi.stdout.strip())
+        return 0
+    if sys.argv[1:2] == ["--campaign-only"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            campaign_phase(dev, tmp, smi.stdout.strip())
         return 0
     cfg = flagship_config()
     model = Multiverse.init(cfg, seed=0, device=dev)
@@ -5372,6 +5678,10 @@ def main() -> int:
                                           smi.stdout.strip()).items():
             launches[k] += n
     elapsed("recorded-moment phase")
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, n in campaign_phase(dev, tmp, smi.stdout.strip()).items():
+            launches[k] += n
+    elapsed("campaign phase")
     for k, fn in PATHLESS.items():
         launches[k] = fn.launches
     print("main path launches of K6, K8, K9 (no path of the port or of the "

@@ -294,7 +294,9 @@ def test_port_never_imports_jax():
     interactive, the moment commands), a camera projection, the packaged
     registry and a planned frame run, ``replay_moment`` replays a moment
     through ``tests/torch_fake_carla.py`` and mvt-torch-spectator stops
-    with an ImportError naming pygame; so do scene_extract and flops."""
+    with an ImportError naming pygame; so do scene_extract and flops; the
+    campaign modules import, their walks run, build a moment's controls
+    and install the port's fake carla."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for name in ('jax', 'jaxlib', 'multiverse_tpu', 'orbax',\n"
@@ -360,7 +362,9 @@ def test_port_never_imports_jax():
         "             'forking_paths.candidates', 'forking_paths.annotation',\n"
         "             'forking_paths.editor', 'forking_paths.recorder',\n"
         "             'forking_paths.interactive', 'cli.moment_tools',\n"
-        "             'data.scene_extract', 'flops'):\n"
+        "             'data.scene_extract', 'flops', 'campaign',\n"
+        "             'campaign.walks', 'campaign.flagship',\n"
+        "             'campaign.simaug'):\n"
         "    assert 'multiverse_torch.' + name in names, name\n"
         "import dataclasses\n"
         "from multiverse_torch.data import multiview\n"
@@ -510,6 +514,17 @@ def test_port_never_imports_jax():
         "    assert e.name == 'pygame' and 'mvt-torch-spectator' in str(e), e\n"
         "else:\n"
         "    raise AssertionError('no ImportError for pygame')\n"
+        "from multiverse_torch.campaign import flagship, walks\n"
+        "rnd = np.random.RandomState(17)\n"
+        "xy = walks.walk_steps(rnd, walks.walk_init(rnd), 30)\n"
+        "assert xy.shape == (30, 2) and np.abs(xy).max() <= walks.LIM\n"
+        "rows = walks.rows_from_xy(xy, 1) + walks.rows_from_xy(\n"
+        "    walks.walk_steps(rnd, walks.walk_init(rnd, 3.0), 30), 2)\n"
+        "ctl = flagship.moment('zara01_0_1_0_a', rows)['ped_controls']\n"
+        "assert sorted(map(int, ctl)) == list(range(0, 300, 10))\n"
+        "fake = flagship.install_fake_carla()\n"
+        "assert fake.__file__ == flagship.FAKE_CARLA\n"
+        "assert sys.modules['carla'].Client is not None\n"
         "del sys.modules['carla']\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
         "             and m.startswith(('jax', 'multiverse_tpu', 'orbax',\n"
