@@ -8,9 +8,12 @@ Same arguments and output pickles as ``mvt-multifuture-inference``
 directory of the JAX package (``<save>/<step>``), or a ``save``/``best``
 directory of either (its latest step), pruned to the configuration's parameters
 as the JAX package prunes a checkpoint that holds more grid scales.
-Two additions: ``--device`` picks the device (default cuda), and
+Three additions: ``--device`` picks the device (default cuda),
 ``--random_init`` decodes seeded random weights (seed 0) instead of
-reading ``model_path`` (smoke tests).
+reading ``model_path`` (smoke tests), and ``--profile DIR`` traces the
+decode with ``torch.profiler``: ``DIR/trace.json`` (a Chrome trace that
+holds the program's spans as ranges) and ``DIR/spans.json`` (each span's
+count, total and self seconds, the counters, the spans dropped).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from multiverse_torch.inference import (
 )
 from multiverse_torch.models import Multiverse
 from multiverse_torch.train.checkpoints import load_checkpoint
+from multiverse_torch.utils import profile_trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -80,6 +84,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "recurrent one at per-row dynamic scales")
     parser.add_argument("--beam_select", default="twostage",
                         choices=["twostage", "dense"])
+    parser.add_argument("--profile", default=None,
+                        help="directory for a torch.profiler trace of the "
+                             "decode and its spans")
     return parser
 
 
@@ -135,15 +142,16 @@ def main(argv=None) -> None:
     print("loaded %d trajectories" % len(inputs.traj_ids))
 
     model = load_model(args.model_path, cfg, args.random_init)
-    output_data, beam_prob = run_multifuture_inference(
-        model, inputs, cfg,
-        batch_size=args.batch_size,
-        greedy=args.greedy,
-        center_only=args.center_only,
-        need_prob=args.save_prob_file is not None,
-        prob_fetch_dtype=args.prob_fetch_dtype,
-        device=args.device,
-    )
+    with profile_trace(args.profile):
+        output_data, beam_prob = run_multifuture_inference(
+            model, inputs, cfg,
+            batch_size=args.batch_size,
+            greedy=args.greedy,
+            center_only=args.center_only,
+            need_prob=args.save_prob_file is not None,
+            prob_fetch_dtype=args.prob_fetch_dtype,
+            device=args.device,
+        )
     save_outputs(output_data, beam_prob,
                  args.output_file, args.save_prob_file)
     print("wrote %s" % args.output_file)

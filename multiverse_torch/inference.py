@@ -15,7 +15,6 @@ from __future__ import annotations
 import glob
 import os
 import pickle
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -41,6 +40,7 @@ from multiverse_torch.models.multiverse import (
 )
 from multiverse_torch.ops import conv2d, convlstm_scan
 from multiverse_torch.ops.layers import get_activation
+from multiverse_torch.utils import span
 
 
 # ----------------------------------------------------------- forward
@@ -93,8 +93,9 @@ def beam_forward(
     cfg.validate()
     T = T_pred or cfg.pred_len
     compute_dtype = _compute_dtype(cfg)
-    obs_onehot, enc_last, scene_mean = _encode(params, batch, cfg,
-                                               compute_dtype)
+    with span("decode.encode"):
+        obs_onehot, enc_last, scene_mean = _encode(params, batch, cfg,
+                                                   compute_dtype)
     sp = params["scales"][str(cfg.active_scales[0])]
     beam = diverse_beam_search(
         sp, cfg,
@@ -106,8 +107,9 @@ def beam_forward(
         save_states=cfg.use_single_decoder,
         compute_dtype=compute_dtype,
     )
-    return beam, _reg_decode(params, batch, cfg, beam.states, T,
-                             compute_dtype)
+    with span("decode.reg"):
+        reg = _reg_decode(params, batch, cfg, beam.states, T, compute_dtype)
+    return beam, reg
 
 
 def greedy_forward(
@@ -123,8 +125,9 @@ def greedy_forward(
     cfg = cfg.replace(use_beam_search=False).validate()
     T = T_pred or cfg.pred_len
     compute_dtype = _compute_dtype(cfg)
-    obs_onehot, enc_last, scene_mean = _encode(params, batch, cfg,
-                                               compute_dtype)
+    with span("decode.encode"):
+        obs_onehot, enc_last, scene_mean = _encode(params, batch, cfg,
+                                                   compute_dtype)
     sp = params["scales"][str(cfg.active_scales[0])]
     logits, states = greedy_decode(
         sp, cfg,
@@ -143,8 +146,9 @@ def greedy_forward(
     # the single decoder's regression reads the best (here: only)
     # decode's states, [N, T, h, w, D]
     states = states[:, None] if cfg.use_single_decoder else None
-    return logits, _reg_decode(params, batch, cfg, states, T,
-                               compute_dtype)
+    with span("decode.reg"):
+        reg = _reg_decode(params, batch, cfg, states, T, compute_dtype)
+    return logits, reg
 
 
 def _reg_decode(params, batch, cfg, states, T, compute_dtype):
@@ -428,6 +432,13 @@ def run_multifuture_inference(
     host copies: on cuda it includes the device work still running),
     "fetch_bytes" (the bytes copied), "pack_s" (host upcast and
     pickle-format assembly) and "batches".
+
+    Under ``torch.profiler`` each batch records its spans
+    (:func:`multiverse_torch.utils.span`), one batch id to all of them:
+    ``decode.batch`` (the span of "build_s") over ``decode.make_batch``,
+    ``decode.upload``, ``decode.forward`` and ``decode.copy_out``; the
+    resolver thread's ``decode.fetch`` and ``decode.pack`` ("fetch_s",
+    "pack_s"); the main thread's ``decode.wait`` for the resolver.
     """
     if prob_fetch_dtype not in ("float32", "float16"):
         raise ValueError(
@@ -453,79 +464,93 @@ def run_multifuture_inference(
     def dispatch(batch: Batch):
         """Enqueue one batch; return host copies and a ready event."""
         with torch.inference_mode():
-            if greedy:
-                logits, reg_out = greedy_forward(
-                    params, batch_to_device(batch, device), cfg, T_pred=T)
-                outs = [reconstruct_greedy_trajs(logits, reg_out, centers,
-                                                 center_only)]
-            else:
-                beam, reg_out = beam_forward(
-                    params, batch_to_device(batch, device), cfg, T_pred=T)
-                outs = [reconstruct_beam_trajs(beam.ids, reg_out, centers,
-                                               center_only), beam.logprobs]
-            if need_prob and not greedy:
-                lg = beam.logits
-                outs.append(lg if fetch_dt is None else lg.to(fetch_dt))
-            if device.type != "cuda":
-                return [o.numpy() for o in outs], None
-            host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
-                    for o in outs]
-            for dst, src in zip(host, outs):
-                dst.copy_(src, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(device))
-            return host, ready
+            with span("decode.upload"):
+                on_device = batch_to_device(batch, device)
+            with span("decode.forward"):
+                if greedy:
+                    logits, reg_out = greedy_forward(params, on_device, cfg,
+                                                     T_pred=T)
+                else:
+                    beam, reg_out = beam_forward(params, on_device, cfg,
+                                                 T_pred=T)
+            with span("decode.copy_out"):
+                if greedy:
+                    outs = [reconstruct_greedy_trajs(logits, reg_out,
+                                                     centers, center_only)]
+                else:
+                    outs = [reconstruct_beam_trajs(beam.ids, reg_out,
+                                                   centers, center_only),
+                            beam.logprobs]
+                if need_prob and not greedy:
+                    lg = beam.logits
+                    outs.append(lg if fetch_dt is None else lg.to(fetch_dt))
+                if device.type != "cuda":
+                    return [o.numpy() for o in outs], None
+                host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                        for o in outs]
+                for dst, src in zip(host, outs):
+                    dst.copy_(src, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(device))
+                return host, ready
 
     output_data: Dict[str, list] = {}
     beam_prob: Dict[str, tuple] = {}
+    timed = timings is not None
 
-    def resolve(idxs, host, ready):
-        t0 = time.perf_counter()
-        if ready is not None:
-            ready.synchronize()
-            # copy out of page-locked memory: the pickles keep views of
-            # these arrays for the whole run
-            host = [t.numpy().copy() for t in host]
-        if timings is not None:
-            timings["fetch_s"] += time.perf_counter() - t0
+    def resolve(batch_id, idxs, host, ready):
+        with span("decode.fetch", batch_id, timed) as fetch:
+            if ready is not None:
+                ready.synchronize()
+                # copy out of page-locked memory: the pickles keep views
+                # of these arrays for the whole run
+                host = [t.numpy().copy() for t in host]
+        with span("decode.pack", batch_id, timed) as pack:
+            trajs = host[0]
+            logits = None
+            if need_prob and not greedy:
+                logprobs, logits = host[1], np.asarray(host[2], np.float32)
+            for a, n in enumerate(idxs):
+                traj_id = inputs.traj_ids[n]
+                pred_len = min(int(inputs.pred_lengths[n]), T)
+                if greedy:
+                    output_data[traj_id] = [list(trajs[a, :pred_len])
+                                            for _ in range(K)]
+                else:
+                    output_data[traj_id] = [list(trajs[a, j, :pred_len])
+                                            for j in range(K)]
+                if logits is not None:
+                    beam_prob[traj_id] = (logits[a:a + 1, :, :pred_len],
+                                          logprobs[a:a + 1])
+        if timed:
+            timings["fetch_s"] += fetch.seconds
             timings["fetch_bytes"] += sum(a.nbytes for a in host)
-            t0 = time.perf_counter()
-        trajs = host[0]
-        logits = None
-        if need_prob and not greedy:
-            logprobs, logits = host[1], np.asarray(host[2], np.float32)
-        for a, n in enumerate(idxs):
-            traj_id = inputs.traj_ids[n]
-            pred_len = min(int(inputs.pred_lengths[n]), T)
-            if greedy:
-                output_data[traj_id] = [list(trajs[a, :pred_len])
-                                        for _ in range(K)]
-            else:
-                output_data[traj_id] = [list(trajs[a, j, :pred_len])
-                                        for j in range(K)]
-            if logits is not None:
-                beam_prob[traj_id] = (logits[a:a + 1, :, :pred_len],
-                                      logprobs[a:a + 1])
-        if timings is not None:
-            timings["pack_s"] += time.perf_counter() - t0
+            timings["pack_s"] += pack.seconds
             timings["batches"] += 1
 
-    futures: list = []
+    def wait(batch_id, future):
+        with span("decode.wait", batch_id):
+            future.result()
+
+    pending: list = []      # (batch id, its resolver's future)
     with ThreadPoolExecutor(max_workers=1) as pool:
         for lo in range(0, N, batch_size):
-            t0 = time.perf_counter()
-            idxs = np.arange(lo, min(lo + batch_size, N))
-            pad = batch_size - len(idxs)
-            padded = np.concatenate([idxs, np.full(pad, idxs[-1])]) \
-                if pad else idxs
-            host, ready = dispatch(make_batch(inputs, padded, cfg))
-            futures.append(pool.submit(resolve, idxs, host, ready))
-            if timings is not None:
-                timings["build_s"] += time.perf_counter() - t0
-            if len(futures) >= 2:
-                futures.pop(0).result()
-        for f in futures:
-            f.result()
+            with span("decode.batch", timed=timed) as b:
+                idxs = np.arange(lo, min(lo + batch_size, N))
+                pad = batch_size - len(idxs)
+                padded = np.concatenate([idxs, np.full(pad, idxs[-1])]) \
+                    if pad else idxs
+                with span("decode.make_batch"):
+                    batch = make_batch(inputs, padded, cfg)
+                host, ready = dispatch(batch)
+                pending.append((b.batch, pool.submit(resolve, b.batch, idxs,
+                                                     host, ready)))
+            if timed:
+                timings["build_s"] += b.seconds
+            if len(pending) >= 2:
+                wait(*pending.pop(0))
+        for p in pending:
+            wait(*p)
     return output_data, beam_prob
 
 

@@ -18,6 +18,13 @@ decode step of ``cfg.decode_quant``'s tier
 order the step wrote it, and the next step reads each row's parent
 through ``parent_rows``. Every other configuration runs the composed
 step (GNN, cell, readout) with an explicit parent gather.
+
+Under ``torch.profiler`` the search records its spans
+(:func:`multiverse_torch.utils.span`): ``beam.prepare`` (the embedding
+table, the step's operands, the tiled state), ``beam.step`` once a step
+over ``beam.fused_step`` (the fused step's launches) and ``beam.select``
+(selection and freezing), ``beam.backtrace``, and the counter
+``beam.steps``.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from multiverse_torch.ops import (
     make_decode_step,
 )
 from multiverse_torch.ops.layers import get_activation
+from multiverse_torch.utils import count, span
 
 NEG_INF = -1e30
 
@@ -140,118 +148,128 @@ def diverse_beam_search(
     cell_p = scale_params["dec_class"]
     h2g_p = scale_params["h2g_class"]
 
-    # the decoder input is always a one-hot cell, so the embedding of
-    # every cell is one conv over the HW basis maps, gathered by id
-    basis = one_hot_grid(torch.arange(HW, device=dev), h, w)
-    emb_table = conv2d(emb_p, basis, activation=act,
-                       compute_dtype=compute_dtype)      # [HW, h, w, E]
+    with span("beam.prepare"):
+        # the decoder input is always a one-hot cell, so the embedding of
+        # every cell is one conv over the HW basis maps, gathered by id
+        basis = one_hot_grid(torch.arange(HW, device=dev), h, w)
+        emb_table = conv2d(emb_p, basis, activation=act,
+                           compute_dtype=compute_dtype)      # [HW, h, w, E]
 
-    def tile(x):
-        return x[:, None].expand((N, K) + tuple(x.shape[1:]))
+        def tile(x):
+            return x[:, None].expand((N, K) + tuple(x.shape[1:]))
 
-    ids0 = torch.argmax(first_input.reshape(N, HW), dim=1).int()
-    prev_ids = ids0[:, None].expand(N, K)
-    state_dtype = compute_dtype or init_state.h.dtype
-    state = ConvLSTMState(c=tile(init_state.c.to(state_dtype)),
-                          h=tile(init_state.h.to(state_dtype)))
-    scene_nk = None
-    if scene_mean is not None and use_gnn:
-        scene_nk = _fold(tile(scene_mean))
-    logprob = torch.zeros((N, K), dtype=torch.float32, device=dev)
-    beam_iota = torch.arange(K, dtype=torch.int32, device=dev).expand(N, K)
-    prev_parents = beam_iota
+        ids0 = torch.argmax(first_input.reshape(N, HW), dim=1).int()
+        prev_ids = ids0[:, None].expand(N, K)
+        state_dtype = compute_dtype or init_state.h.dtype
+        state = ConvLSTMState(c=tile(init_state.c.to(state_dtype)),
+                              h=tile(init_state.h.to(state_dtype)))
+        scene_nk = None
+        if scene_mean is not None and use_gnn:
+            scene_nk = _fold(tile(scene_mean))
+        logprob = torch.zeros((N, K), dtype=torch.float32, device=dev)
+        beam_iota = torch.arange(K, dtype=torch.int32,
+                                 device=dev).expand(N, K)
+        prev_parents = beam_iota
 
-    fused = (compute_dtype == torch.bfloat16 and cfg.allow_pallas
-             and use_gnn and not save_states)
-    twostage = (cfg.beam_select == "twostage" and K <= HW
-                and (not cfg.diverse_beam or cfg.diverse_gamma <= 1.0))
-    select_fn = (select_successors_twostage if twostage
-                 else select_successors_dense)
-    if fused:
-        bf = torch.bfloat16
-        cell_b = cell_p["bias"].float().contiguous()
-        h2g_w = h2g_p["w"].to(bf).reshape(9, D).t().contiguous()   # [D, 9]
-        # the tier's operands are prepared once per decode
-        step = make_decode_step(cfg.decode_quant, cell_p, emb_table)
-        scene_rows = None if scene_nk is None else \
-            scene_nk.to(bf).reshape(N * K * HW, -1).contiguous()
-        h_rows = _fold(state.h).reshape(N * K * HW, D).contiguous()
-        c_rows = _fold(state.c).reshape(N * K * HW, D).contiguous()
-        row0 = torch.arange(N, dtype=torch.int32, device=dev)[:, None] * K
+        fused = (compute_dtype == torch.bfloat16 and cfg.allow_pallas
+                 and use_gnn and not save_states)
+        twostage = (cfg.beam_select == "twostage" and K <= HW
+                    and (not cfg.diverse_beam or cfg.diverse_gamma <= 1.0))
+        select_fn = (select_successors_twostage if twostage
+                     else select_successors_dense)
+        if fused:
+            bf = torch.bfloat16
+            cell_b = cell_p["bias"].float().contiguous()
+            h2g_w = h2g_p["w"].to(bf).reshape(9, D).t().contiguous()  # [D, 9]
+            # the tier's operands are prepared once per decode
+            step = make_decode_step(cfg.decode_quant, cell_p, emb_table)
+            scene_rows = None if scene_nk is None else \
+                scene_nk.to(bf).reshape(N * K * HW, -1).contiguous()
+            h_rows = _fold(state.h).reshape(N * K * HW, D).contiguous()
+            c_rows = _fold(state.c).reshape(N * K * HW, D).contiguous()
+            row0 = torch.arange(N, dtype=torch.int32,
+                                device=dev)[:, None] * K
 
     all_ids, all_parents, all_logits, all_states = [], [], [], []
     for t in range(T_pred):
-        if fused:
-            # the beam reorder rides the step's reads: row i reads its
-            # parent's state and its id's embedding-table row
-            ids_flat = prev_ids.reshape(-1).contiguous()
-            parents_flat = (row0 + prev_parents).reshape(-1).contiguous()
-            h_rows, c_rows, logits_t = step(
-                cell_b, h2g_w, ids_flat, parents_flat, h_rows, c_rows,
-                scene_rows, h, w)
-        else:
-            emb = emb_table[prev_ids.reshape(-1).long()]
-            hh = _fold(state.h)
-            if use_gnn:
-                hh = hh + gnn_step_auto(hh, scene_nk,
-                                        compute_dtype=compute_dtype,
-                                        allow_pallas=cfg.allow_pallas)
-            out, new_state_f = convlstm_step(
-                cell_p, emb, ConvLSTMState(c=_fold(state.c), h=hh),
-                compute_dtype=compute_dtype)
-            logits_t = conv2d(h2g_p, out, compute_dtype=compute_dtype)
-        logits_t = logits_t.reshape(N, K, HW)
+        with span("beam.step"):
+            if fused:
+                with span("beam.fused_step"):
+                    # the beam reorder rides the step's reads: row i reads
+                    # its parent's state and its id's embedding-table row
+                    ids_flat = prev_ids.reshape(-1).contiguous()
+                    parents_flat = (row0 + prev_parents).reshape(-1) \
+                        .contiguous()
+                    h_rows, c_rows, logits_t = step(
+                        cell_b, h2g_w, ids_flat, parents_flat, h_rows,
+                        c_rows, scene_rows, h, w)
+            else:
+                emb = emb_table[prev_ids.reshape(-1).long()]
+                hh = _fold(state.h)
+                if use_gnn:
+                    hh = hh + gnn_step_auto(hh, scene_nk,
+                                            compute_dtype=compute_dtype,
+                                            allow_pallas=cfg.allow_pallas)
+                out, new_state_f = convlstm_step(
+                    cell_p, emb, ConvLSTMState(c=_fold(state.c), h=hh),
+                    compute_dtype=compute_dtype)
+                logits_t = conv2d(h2g_p, out, compute_dtype=compute_dtype)
+            logits_t = logits_t.reshape(N, K, HW)
 
-        new_logprob, ids, parents = select_fn(
-            logprob, logits_t, K, t, cfg.diverse_beam, cfg.diverse_gamma)
-        if t + 1 <= cfg.fix_num_timestep:
-            new_logprob = torch.zeros_like(new_logprob)
+            with span("beam.select"):
+                new_logprob, ids, parents = select_fn(
+                    logprob, logits_t, K, t, cfg.diverse_beam,
+                    cfg.diverse_gamma)
+                if t + 1 <= cfg.fix_num_timestep:
+                    new_logprob = torch.zeros_like(new_logprob)
 
-        if pred_length is not None:      # freeze finished samples
-            fin = (t >= pred_length)[:, None]
-            new_logprob = torch.where(fin, logprob, new_logprob)
-            parents = torch.where(fin, beam_iota, parents)
-            ids = torch.where(fin, torch.zeros_like(ids), ids)
+                if pred_length is not None:      # freeze finished samples
+                    fin = (t >= pred_length)[:, None]
+                    new_logprob = torch.where(fin, logprob, new_logprob)
+                    parents = torch.where(fin, beam_iota, parents)
+                    ids = torch.where(fin, torch.zeros_like(ids), ids)
 
-        if fused:
-            # carry the step's output un-reordered; the next step reads
-            # through `parents`. A finished sample's state keeps evolving
-            # under identity parents, but everything it emits past
-            # pred_length is sliced away by the consumers.
-            prev_parents = parents
-        else:
-            def unfold(x):
-                return x.reshape((N, K) + tuple(x.shape[1:]))
-            new_state = ConvLSTMState(
-                c=_gather_beams(unfold(new_state_f.c), parents),
-                h=_gather_beams(unfold(new_state_f.h), parents))
-            if pred_length is not None:
-                keep = fin.reshape(N, 1, 1, 1, 1)
+            if fused:
+                # carry the step's output un-reordered; the next step
+                # reads through `parents`. A finished sample's state keeps
+                # evolving under identity parents, but everything it emits
+                # past pred_length is sliced away by the consumers.
+                prev_parents = parents
+            else:
+                def unfold(x):
+                    return x.reshape((N, K) + tuple(x.shape[1:]))
                 new_state = ConvLSTMState(
-                    c=torch.where(keep, state.c, new_state.c),
-                    h=torch.where(keep, state.h, new_state.h))
-            state = new_state
-            if save_states:
-                all_states.append(out.reshape(N, K, h, w, D))
-        logprob = new_logprob
-        prev_ids = ids
-        all_ids.append(ids)
-        all_parents.append(parents)
-        all_logits.append(logits_t)
+                    c=_gather_beams(unfold(new_state_f.c), parents),
+                    h=_gather_beams(unfold(new_state_f.h), parents))
+                if pred_length is not None:
+                    keep = fin.reshape(N, 1, 1, 1, 1)
+                    new_state = ConvLSTMState(
+                        c=torch.where(keep, state.c, new_state.c),
+                        h=torch.where(keep, state.h, new_state.h))
+                state = new_state
+                if save_states:
+                    all_states.append(out.reshape(N, K, h, w, D))
+            logprob = new_logprob
+            prev_ids = ids
+            all_ids.append(ids)
+            all_parents.append(parents)
+            all_logits.append(logits_t)
+    count("beam.steps", T_pred)
 
     # backtrace from the final beams through the parent pointers
-    sel_ids, sel_logits, sel_states = [], [], []
-    carry = beam_iota.long()
-    for t in reversed(range(T_pred)):
-        sel_ids.append(torch.gather(all_ids[t], 1, carry))
-        sel_logits.append(_gather_beams(all_logits[t], carry))
-        if save_states:
-            sel_states.append(_gather_beams(all_states[t], carry))
-        carry = torch.gather(all_parents[t], 1, carry).long()
-    final_ids = torch.stack(sel_ids[::-1], dim=2)           # [N, K, T]
-    final_logits = torch.stack(sel_logits[::-1], dim=2)     # [N, K, T, HW]
-    final_states = (torch.stack(sel_states[::-1], dim=2)
-                    if save_states else None)
+    with span("beam.backtrace"):
+        sel_ids, sel_logits, sel_states = [], [], []
+        carry = beam_iota.long()
+        for t in reversed(range(T_pred)):
+            sel_ids.append(torch.gather(all_ids[t], 1, carry))
+            sel_logits.append(_gather_beams(all_logits[t], carry))
+            if save_states:
+                sel_states.append(_gather_beams(all_states[t], carry))
+            carry = torch.gather(all_parents[t], 1, carry).long()
+        final_ids = torch.stack(sel_ids[::-1], dim=2)           # [N, K, T]
+        final_logits = torch.stack(sel_logits[::-1], dim=2)     # [N, K, T, HW]
+        final_states = (torch.stack(sel_states[::-1], dim=2)
+                        if save_states else None)
     return BeamOutputs(
         best_logits=final_logits[:, 0].reshape(N, T_pred, h, w, 1),
         logits=final_logits,

@@ -268,6 +268,39 @@ def test_cuda_request_raises_without_cuda():
         tinf.run_multifuture_inference(model, inputs, cfg, device="cuda")
 
 
+def test_cli_profile_writes_trace_and_spans(tmp_path):
+    """``--profile DIR``: the Chrome trace holds the program's spans as
+    ranges, and ``spans.json`` each span's count and self time."""
+    import json
+
+    cfg = _cfg(obs_len=8)
+    traj_p, mf_p, scene_p, id2name = write_multifuture_dataset(
+        str(tmp_path), cfg, np.random.RandomState(1), num_traj=3,
+        max_pred_len=6)
+    prof = tmp_path / "prof"
+    tcli.main(["unused", traj_p, mf_p, str(tmp_path / "o.traj.p"),
+               "--random_init", "--device", "cpu", "--profile", str(prof),
+               "--scene_feat_path", scene_p, "--scene_id2name", id2name,
+               "--num_out", "4", "--use_gnn", "--use_scene_enc",
+               "--diverse_beam", "--diverse_gamma", "0.01",
+               "--fix_num_timestep", "1", "--scene_h", "12", "--scene_w",
+               "16", "--scene_class", "5", "--video_h", "540", "--video_w",
+               "960", "--emb_size", "8", "--enc_hidden_size", "16",
+               "--dec_hidden_size", "16", "--scene_conv_dim", "8",
+               "--batch_size", "2"])
+    with open(prof / "spans.json") as f:
+        got = json.load(f)
+    assert got["dropped"] == 0
+    spans = got["spans"]
+    assert spans["decode.batch"]["count"] == 2
+    assert spans["beam.step"]["count"] == got["counters"]["beam.steps"] > 0
+    for v in spans.values():
+        assert 0 <= v["self_s"] <= v["total_s"]
+    with open(prof / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"decode.batch", "beam.step", "beam.select"} <= names
+
+
 def test_port_never_imports_jax():
     """With jax, the JAX package, orbax, tensorstore, zstandard and
     tensorflow made unimportable, every module of the port and chip_smoke.py import
