@@ -23,26 +23,40 @@
 //       ConvLSTM cell alone, the gate launch over [x (+) h] with per-row
 //       x and c and no attention or readout.
 //
-//   1. gnn_attention_kernel   one block of 16 warps per (beam row, tile of
-//      up to 2 image rows by 32 pixels). The TPU kernel forms the dense
+//   1. gnn_attention_kernel   the cosine attention over each pixel's 3x3
+//      neighbourhood of [h (+) scene]. The TPU kernel forms the dense
 //      [HW, HW] edge tile (1.3 MB in f32 at 18x32), far beyond a block's
 //      227 KB of shared memory. The mask is the 3x3 neighbourhood and
 //      exp(-1e30) is 0 in f32, so the softmax over the 9 neighbours is
 //      exact. Bound: bytes (h and scene read, the output written: ~0.063
 //      ms at 320 beam rows, 18x32, D=256, C=64, bf16 out). Each pixel's
-//      row is a neighbour of nine pixels and read three times by each
-//      (norm, dot, aggregation): from L1/L2 that is latency, not bytes. So
-//      the block stages the tile and its one-pixel halo once by cp.async
-//      (raw bf16 h and scene rows, ~87 KB at those widths: two blocks an
-//      SM) and one f32 inverse norm per staged pixel, keeps the
-//      normalised node implicit as round_bf16(x * inv), runs the nine
-//      edges side by side from shared memory, then the aggregation. Lane
-//      l takes the channel pairs 2l + 64i and the warp sums reduce them
-//      (node_sumsq's order): the gates on K2's h2_q and K7's h2_f were
-//      set on sums in that order. Writes h2 = bf16(h + agg) (K1, K8, K9);
-//      the int8 tier (fused_decode_q8.cu) takes the same launch with the
-//      int8 gate input quantize_h2(h + agg) as its output, the int8_dyn
-//      tier with h + agg in f32 and each pixel's max |h + agg|.
+//      row is read by nine pixels, three times by each (norm, dot,
+//      aggregation), so the time goes to instructions and latency, not to
+//      bytes. The design:
+//      - the grid: one block of 16 warps per resident slot (two an SM),
+//        each walking an equal share of the image rows in runs down one
+//        beam row (and column tile), so no wave of the grid runs short;
+//      - copies: rows roll through a ring of four raw h rows; row t + 3's h
+//        and scene are in flight (16-byte cp.async) while row t computes,
+//        and each row is read from device memory once per run;
+//      - normalisation: each staged pixel's node round_bf16(x * inv) once,
+//        into a ring of two rows, which each of its nine dots reads as it
+//        is;
+//      - edges: each edge once for both its pixels (self, east and the
+//        three down to the next row; a pixel's other four are its
+//        neighbours'), two columns a warp;
+//      - softmax: nine lanes a pixel; aggregation: 8-byte loads, each
+//        loaded row serving both pixels of the warp, and a tap outside the
+//        grid weighing -0 on a zero row or column, so no tap is tested.
+//      Every sum runs in a fixed order, whatever the grid: lane l takes the
+//      channel pairs 2l + 64i of a node and the warp's butterfly reduces
+//      them (node_sumsq's order; the gates on K2's h2_q and K7's h2_f were
+//      set on sums in that order), the softmax and each channel's
+//      aggregation run in tap order.
+//      Writes h2 = bf16(h + agg) (K1, K8, K9); the int8 tier
+//      (fused_decode_q8.cu) takes the same launch with the int8 gate input
+//      quantize_h2(h + agg) as its output, the int8_dyn tier with h + agg
+//      in f32 and each pixel's max |h + agg|.
 //   2. The gate launch: gate_lstm_wgmma_kernel of gate_wgmma.cuh, bf16 x
 //      bf16 -> f32 (m64nNk16), gates = acc + b (K9: ((acc + dev) + bg) +
 //      b), then the LSTM update in registers. Bound: operations (~0.98
@@ -68,22 +82,52 @@ namespace {
 
 constexpr int ATTN_THREADS = 512;
 constexpr int ATTN_WARPS = ATTN_THREADS / 32;
+// each warp takes two image columns of a row in every phase, so a tile is
+// at most 32 output columns wide
+constexpr int ATTN_MAX_BW = 2 * ATTN_WARPS;
+constexpr size_t ATTN_MAX_SMEM = 227 * 1024;
 
-// shared memory of one staged pixel: its bf16 h and scene rows and the f32
-// inverse norm of its node
-__host__ __device__ __forceinline__ size_t attn_pixel_bytes(int D, int C) {
-  return (size_t)(D + C) * 2 + 4;
+__host__ __device__ __forceinline__ size_t align16(size_t n) {
+  return (n + 15) & ~(size_t)15;
 }
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+// Shared memory of a block whose tile stages SC image columns (byte
+// offsets; the raw ring first):
+//   raw   [4][SC + 1][D]  bf16  h of image rows t - 1 .. t + 2, row j in
+//                               slot j & 3; column SC stays zero
+//   norm  [2][SC][D + C]  bf16  the normalised node round_bf16(x * inv)
+//                               of rows t and t + 1, row j in slot j & 1
+//   land  [SC][C]         bf16  the scene of the row in flight
+//   se    [SC][2]         f32   row t's self and east edges
+//   dn    [2][SC][3]      f32   the edges from row j down to row j + 1
+//                               (dx = -1, 0, 1), row j in slot j & 1
+struct AttnLayout {
+  size_t norm, land, se, dn, bytes;
+  __host__ __device__ AttnLayout(int SC, int D, int C) {
+    norm = align16((size_t)4 * (SC + 1) * D * 2);
+    land = norm + align16((size_t)2 * SC * (D + C) * 2);
+    se = land + align16((size_t)SC * C * 2);
+    dn = se + (size_t)SC * 2 * 4;
+    bytes = dn + (size_t)2 * SC * 3 * 4;
+  }
+};
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool pred) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
+  const int n = pred ? 4 : 0;  // 0 bytes read: the 4 bytes are zeroed
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
 }
 
-// two values rounded to bf16 by one conversion, back in f32
-__device__ __forceinline__ float2 round_bf16x2(float x, float y) {
-  return __bfloat1622float2(__floats2bfloat162_rn(x, y));
+// a bf16 pair read as one 32-bit word, both values exact in f32 (two
+// integer instructions, where __bfloat1622float2 takes three)
+__device__ __forceinline__ float2 bf16x2_bits(unsigned u) {
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+__device__ __forceinline__ float2 bf16x2_at(const bf16* p) {
+  return bf16x2_bits(*reinterpret_cast<const unsigned*>(p));
 }
 
 // What the attention launch writes for each (row, pixel, channel):
@@ -95,8 +139,10 @@ enum AttnOut {
                  // pixel's max |h + agg| over its D channels in pix_max
 };
 
-// One block per (beam row, BR x BW tile of pixels); parent_rows null:
-// identity parents (row r reads state row r).
+// The block walks its share of the NK * tiles_x * H image rows (beam row,
+// column tile, image row; image rows fastest) in runs, each within one
+// (beam row, tile); parent_rows null: identity parents (row r reads state
+// row r).
 template <int kOut>
 __global__ void __launch_bounds__(ATTN_THREADS, 2)
 gnn_attention_kernel(const int* __restrict__ parent_rows,
@@ -104,165 +150,378 @@ gnn_attention_kernel(const int* __restrict__ parent_rows,
                      const bf16* __restrict__ scene,  // [NK, HW, C] or null
                      void* __restrict__ h2,           // [NK, HW, D] new order
                      float* __restrict__ pix_max,     // [NK, HW], kOutF32
-                     int H, int W, int D, int C, int BR, int BW, int tiles_y,
-                     int tiles_x) {
+                     int H, int W, int D, int C, int BW, int tiles_x,
+                     long long rows) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int HC = BW + 2, HP = (BR + 2) * HC;
-  bf16* hs = reinterpret_cast<bf16*>(smem);                    // [HP, D]
-  bf16* ss = hs + (size_t)HP * D;                              // [HP, C]
-  float* inv = reinterpret_cast<float*>(ss + (size_t)HP * C);  // [HP]
-
-  const int HW = H * W;
-  const int tiles = tiles_y * tiles_x;
-  const int r = blockIdx.x / tiles;
-  const int t = blockIdx.x - r * tiles;
-  const int y0 = (t / tiles_x) * BR, x0 = (t % tiles_x) * BW;
-  const bf16* hrow =
-      h + (long long)(parent_rows ? parent_rows[r] : r) * HW * D;
-  const bf16* srow = scene ? scene + (long long)r * HW * C : nullptr;
+  const int SCM = min(W, BW + 2), NC = D + C;
+  const AttnLayout L(SCM, D, C);
+  bf16* raw = reinterpret_cast<bf16*>(smem);
+  bf16* norm = reinterpret_cast<bf16*>(smem + L.norm);
+  bf16* land = reinterpret_cast<bf16*>(smem + L.land);
+  float* se = reinterpret_cast<float*>(smem + L.se);
+  float* dnb = reinterpret_cast<float*>(smem + L.dn);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int HW = H * W;
+  auto raw_row = [&](int j) {
+    return raw + (size_t)(j & 3) * (SCM + 1) * D;
+  };
+  // the zero column of each raw slot: a tap outside the grid reads it
+  for (int i = threadIdx.x; i < 4 * D / 8; i += ATTN_THREADS)
+    *reinterpret_cast<uint4*>(raw_row(i / (D / 8)) + SCM * D +
+                              8 * (i % (D / 8))) = make_uint4(0, 0, 0, 0);
+  auto norm_row = [&](int j) { return norm + (size_t)(j & 1) * SCM * NC; };
 
-  // stage the tile and its halo, every copy in flight at once; a halo
-  // pixel outside the grid is never read
-  const int hv = D / 8, sv = srow ? C / 2 : 0;  // 16-byte / 4-byte copies
-  for (int i = threadIdx.x; i < HP * (hv + sv); i += ATTN_THREADS) {
-    const int hp = i / (hv + sv), v = i - hp * (hv + sv);
-    const int yy = y0 - 1 + hp / HC, xx = x0 - 1 + hp % HC;
-    if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
-    const long long q = (long long)yy * W + xx;
-    if (v < hv)
-      cp_async16(hs + (size_t)hp * D + 8 * v, hrow + q * D + 8 * v, true);
-    else
-      cp_async4(ss + (size_t)hp * C + 2 * (v - hv),
-                srow + q * C + 2 * (v - hv));
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  for (int hp = warp; hp < HP; hp += ATTN_WARPS) {
-    const int yy = y0 - 1 + hp / HC, xx = x0 - 1 + hp % HC;
-    if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
-    const float sumsq =
-        node_sumsq(hs + (size_t)hp * D, ss + (size_t)hp * C, D, C, lane);
-    if (lane == 0) inv[hp] = rsqrtf(fmaxf(sumsq, 1e-12f));
-  }
-  __syncthreads();
+  const long long g1 = rows * (blockIdx.x + 1) / gridDim.x;
+  for (long long g = rows * blockIdx.x / gridDim.x; g < g1;) {
+    const long long run = g / H;  // (beam row, tile)
+    const int y0 = (int)(g - run * H);
+    const int ye = (int)min((long long)H, y0 + (g1 - g));
+    g += ye - y0;
+    const int r = (int)(run / tiles_x);
+    const int x0 = (int)(run - (long long)r * tiles_x) * BW;
+    const int xs = max(x0 - 1, 0), SC = min(x0 + BW + 1, W) - xs;
+    const int ox = x0 - xs, BWt = min(BW, W - x0);
+    const bf16* hrow =
+        h + (long long)(parent_rows ? parent_rows[r] : r) * HW * D;
+    const bf16* srow = scene ? scene + (long long)r * HW * C : hrow;
 
-  for (int o = warp; o < BR * BW; o += ATTN_WARPS) {
-    const int y = y0 + o / BW, x = x0 + o % BW;
-    if (y >= H || x >= W) continue;
-    const int hc = (o / BW + 1) * HC + o % BW + 1;  // halo index of (y, x)
-    int hn[9];
-#pragma unroll
-    for (int s = 0; s < 9; ++s) {
-      const int yy = y + s / 3 - 1, xx = x + s % 3 - 1;
-      hn[s] = (yy >= 0 && yy < H && xx >= 0 && xx < W)
-                  ? hc + (s / 3 - 1) * HC + (s % 3 - 1)
-                  : -1;
-    }
-    // the nine edges side by side, with no branch, so that their loads
-    // and reductions overlap (a neighbour outside the grid reads the
-    // pixel's own row and is masked below); each lane's sum and the warp
-    // sum as node_sumsq's
-    const float inv_p = inv[hc];
-    float iq[9], dot[9];
-#pragma unroll
-    for (int s = 0; s < 9; ++s) {
-      iq[s] = inv[hn[s] < 0 ? hc : hn[s]];
-      dot[s] = 0.f;
-    }
-    for (int k = 2 * lane; k < D; k += 64) {
-      const float2 a = load_bf16x2(hs + (size_t)hc * D + k);
-      const float2 an = round_bf16x2(a.x * inv_p, a.y * inv_p);
-#pragma unroll
-      for (int s = 0; s < 9; ++s) {
-        const float2 b =
-            load_bf16x2(hs + (size_t)(hn[s] < 0 ? hc : hn[s]) * D + k);
-        const float2 bn = round_bf16x2(b.x * iq[s], b.y * iq[s]);
-        dot[s] += an.x * bn.x + an.y * bn.y;
+    // image row j's h into its raw slot and its scene into sdst (pixel
+    // stride ss); a row outside the grid is zeroed. The warp that copies
+    // a column is the one that normalises it, so a warp waits only for
+    // its own copies.
+    auto stage = [&](int j, bf16* sdst, int ss) {
+      const bool in = j >= 0 && j < H;
+      const long long q0 = in ? (long long)j * W + xs : 0;
+      const bf16* hg = hrow + q0 * D;
+      const bf16* sg = srow + q0 * C;
+      bf16* rdst = raw_row(j);
+      for (int c = warp; c < SC; c += ATTN_WARPS) {
+        for (int v = 8 * lane; v < D; v += 256)
+          cp_async16(rdst + c * D + v, hg + c * D + v, in);
+        if (C % 8 == 0) {
+          for (int v = 8 * lane; v < C; v += 256)
+            cp_async16(sdst + c * ss + v, sg + c * C + v, in);
+        } else {
+          for (int v = 2 * lane; v < C; v += 64)
+            cp_async4(sdst + c * ss + v, sg + c * C + v, in);
+        }
       }
-    }
-    for (int k = 2 * lane; k < C; k += 64) {
-      const float2 a = load_bf16x2(ss + (size_t)hc * C + k);
-      const float2 an = round_bf16x2(a.x * inv_p, a.y * inv_p);
+    };
+    // row j's node normalised once: inv as node_sumsq sums it, then each
+    // value round_bf16(x * inv), exactly what every neighbour's dot
+    // reads; the scene is read from ssrc (pixel stride ss), in place when
+    // it lies in the node's own slot
+    auto normalise = [&](int j, const bf16* ssrc, int ss) {
+      // the warp's columns c and c + ATTN_WARPS side by side, their sums
+      // independent (a lone last column is taken twice, written once)
+      for (int c = warp; c < SC; c += 2 * ATTN_WARPS) {
+        const bool two = c + ATTN_WARPS < SC;
+        const int cq[2] = {c, two ? c + ATTN_WARPS : c};
+        float sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int s = 0; s < 9; ++s) {
-        const float2 b =
-            load_bf16x2(ss + (size_t)(hn[s] < 0 ? hc : hn[s]) * C + k);
-        const float2 bn = round_bf16x2(b.x * iq[s], b.y * iq[s]);
-        dot[s] += an.x * bn.x + an.y * bn.y;
+        for (int q = 0; q < 2; ++q) {
+          const bf16* hq = raw_row(j) + cq[q] * D;
+          const bf16* sq = ssrc + cq[q] * ss;
+#pragma unroll 4
+          for (int k = 2 * lane; k < D; k += 64) {
+            const float2 v = bf16x2_at(hq + k);
+            sum[q] += v.x * v.x + v.y * v.y;
+          }
+#pragma unroll 1
+          for (int k = 2 * lane; k < C; k += 64) {
+            const float2 v = bf16x2_at(sq + k);
+            sum[q] += v.x * v.x + v.y * v.y;
+          }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            sum[q] += __shfl_xor_sync(0xffffffffu, sum[q], o);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (q == 1 && !two) break;
+          const float inv = rsqrtf(fmaxf(sum[q], 1e-12f));
+          const bf16* hq = raw_row(j) + cq[q] * D;
+          const bf16* sq = ssrc + cq[q] * ss;
+          bf16* nq = norm_row(j) + cq[q] * NC;
+#pragma unroll 4
+          for (int k = 2 * lane; k < D; k += 64) {
+            const float2 a = bf16x2_at(hq + k);
+            *reinterpret_cast<__nv_bfloat162*>(nq + k) =
+                __floats2bfloat162_rn(a.x * inv, a.y * inv);
+          }
+#pragma unroll 1
+          for (int k = 2 * lane; k < C; k += 64) {
+            const float2 a = bf16x2_at(sq + k);
+            *reinterpret_cast<__nv_bfloat162*>(nq + D + k) =
+                __floats2bfloat162_rn(a.x * inv, a.y * inv);
+          }
+        }
       }
-    }
-    float e[9];
-    float m = -INFINITY;
+    };
+    // row t's edges, each computed once for both its pixels: self, east,
+    // and down to row t + 1. A warp takes two columns; lane l sums the
+    // channel pairs 2l + 64i as node_sumsq does, then the warp's
+    // butterfly: its first level leaves the left column's five sums in
+    // lanes 0-15 and the right column's in lanes 16-31, the other four
+    // levels reduce both halves at once, so each sum is added in the
+    // order warp_sum adds it.
+    auto edges = [&](int t) {
+      const bf16* n0 = norm_row(t) + 2 * lane;
+      const bf16* n1 = norm_row(t + 1) + 2 * lane;
+      float* dn = dnb + (t & 1) * SCM * 3;
+      for (int c0 = 2 * warp; c0 < SC; c0 += 2 * ATTN_WARPS) {
+        // a neighbour column outside the tile is clamped into it: its
+        // edge is never read
+        int ca[3], cb[4];
 #pragma unroll
-    for (int s = 0; s < 9; ++s) {
-      e[s] = warp_sum(dot[s]);
-      if (hn[s] >= 0) m = fmaxf(m, e[s]);
-    }
-    float total = 0.f;
+        for (int i = 0; i < 3; ++i) ca[i] = min(c0 + i, SC - 1) * NC;
 #pragma unroll
-    for (int s = 0; s < 9; ++s) {
-      if (hn[s] < 0) continue;
-      e[s] = expf(e[s] - m);
-      total += e[s];
-    }
+        for (int i = 0; i < 4; ++i)
+          cb[i] = min(max(c0 - 1 + i, 0), SC - 1) * NC;
+        float v[2][5];  // self, east, down-left, down, down-right
 #pragma unroll
-    for (int s = 0; s < 9; ++s)
-      e[s] = hn[s] < 0 ? 0.f : round_bf16(e[s] / total);
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int s = 0; s < 5; ++s) v[p][s] = 0.f;
+        auto dots = [&](const bf16* r0, const bf16* r1, int n) {
+          for (int k = 2 * lane; k < n; k += 64, r0 += 64, r1 += 64) {
+            float2 a[3], b[4];
+#pragma unroll
+            for (int i = 0; i < 3; ++i) a[i] = bf16x2_at(r0 + ca[i]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) b[i] = bf16x2_at(r1 + cb[i]);
+#pragma unroll
+            for (int p = 0; p < 2; ++p) {
+              v[p][0] += a[p].x * a[p].x + a[p].y * a[p].y;
+              v[p][1] += a[p].x * a[p + 1].x + a[p].y * a[p + 1].y;
+#pragma unroll
+              for (int d = 0; d < 3; ++d)
+                v[p][2 + d] += a[p].x * b[p + d].x + a[p].y * b[p + d].y;
+            }
+          }
+        };
+        dots(n0, n1, D);
+        dots(n0 + D, n1 + D, C);
+        const bool right = lane >= 16;
+        float e[5];
+#pragma unroll
+        for (int s = 0; s < 5; ++s)
+          e[s] = (right ? v[1][s] : v[0][s]) +
+                 __shfl_xor_sync(0xffffffffu, right ? v[0][s] : v[1][s], 16);
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+#pragma unroll
+          for (int s = 0; s < 5; ++s)
+            e[s] += __shfl_xor_sync(0xffffffffu, e[s], o);
+        const int c = c0 + (lane >> 4);
+        if ((lane & 15) == 0 && c < SC) {
+          se[2 * c] = e[0];
+          se[2 * c + 1] = e[1];
+#pragma unroll
+          for (int d = 0; d < 3; ++d) dn[3 * c + d] = e[2 + d];
+        }
+      }
+    };
+    // output row t: the softmax over the nine edges (lane s < 9 of a half
+    // warp takes tap s of the half's pixel; the sum in tap order), then
+    // the aggregation of h rows t - 1 .. t + 1 in tap order, each loaded
+    // row serving both pixels of the warp
+    auto aggregate = [&](int t) {
+      const float* up = dnb + ((t - 1) & 1) * SCM * 3;
+      const float* down = dnb + (t & 1) * SCM * 3;
+      for (int o0 = 2 * warp; o0 < BWt; o0 += 2 * ATTN_WARPS) {
+        const int c0 = ox + o0;
+        const int half = lane >> 4, s = lane & 15;
+        const int c = c0 + half, x = xs + c;
+        const int dy = s / 3 - 1, dx = s % 3 - 1;
+        const bool valid = o0 + half < BWt && s < 9 && t + dy >= 0 &&
+                           t + dy < H && x + dx >= 0 && x + dx < W;
+        float edge = -INFINITY;
+        if (valid)
+          edge = dy < 0   ? up[3 * (c + dx) + 1 - dx]
+                 : dy > 0 ? down[3 * c + dx + 1]
+                 : dx < 0 ? se[2 * (c - 1) + 1]
+                          : se[2 * c + dx];
+        float m = edge;
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        const float ex = valid ? expf(edge - m) : 0.f;
+        float total = 0.f;
+#pragma unroll
+        for (int j = 0; j < 9; ++j)
+          total += __shfl_sync(0xffffffffu, ex, (lane & 16) + j);
+        // a tap outside the grid weighs -0 and reads +0 (a zero row or
+        // the zero column): fma(-0, +0, acc) is acc for every acc, -0
+        // included, so the tap adds exactly what the plain sum's skip adds
+        const float wt = valid ? round_bf16(ex / total) : -0.f;
+        float w[2][9];
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int j = 0; j < 9; ++j)
+            w[p][j] = __shfl_sync(0xffffffffu, wt, 16 * p + j);
 
-    const long long item = (long long)r * HW + y * W + x;
-    float amax = 0.f;
-    for (int k = 2 * lane; k < D; k += 64) {
-      float ax = 0.f, ay = 0.f;
+        int cc[4];  // the zero column outside the tile
 #pragma unroll
-      for (int s = 0; s < 9; ++s) {
-        if (hn[s] < 0) continue;
-        const float2 v = load_bf16x2(hs + (size_t)hn[s] * D + k);
-        ax += e[s] * v.x;
-        ay += e[s] * v.y;
+        for (int i = 0; i < 4; ++i)
+          cc[i] = (c0 - 1 + i >= 0 && c0 - 1 + i < SC ? c0 - 1 + i : SCM) * D;
+        const long long item =
+            (long long)r * HW + (long long)t * W + xs + c0;
+        using Out = std::conditional_t<
+            kOut == kOutQ8, signed char,
+            std::conditional_t<kOut == kOutF32, float, bf16>>;
+        Out* const out[2] = {static_cast<Out*>(h2) + item * D,
+                             static_cast<Out*>(h2) + (item + 1) * D};
+        float amax[2] = {0.f, 0.f};
+        // lane l sums channels 4l .. 4l + 3 of every 128 (the sum over
+        // taps is per channel, so any lane may take any channel), each
+        // tap in order
+        for (int k = 4 * lane; k < D; k += 128) {
+          float acc[2][4] = {};
+          uint2 own[2];
+#pragma unroll
+          for (int ry = 0; ry < 3; ++ry) {
+            const bf16* row = raw_row(t - 1 + ry) + k;
+            uint2 v[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              v[i] = *reinterpret_cast<const uint2*>(row + cc[i]);
+            if (ry == 1) own[0] = v[1], own[1] = v[2];
+#pragma unroll
+            for (int p = 0; p < 2; ++p)
+#pragma unroll
+              for (int rx = 0; rx < 3; ++rx) {
+                const float wt = w[p][3 * ry + rx];
+                const float2 lo = bf16x2_bits(v[p + rx].x);
+                const float2 hi = bf16x2_bits(v[p + rx].y);
+                acc[p][0] += wt * lo.x;
+                acc[p][1] += wt * lo.y;
+                acc[p][2] += wt * hi.x;
+                acc[p][3] += wt * hi.y;
+              }
+          }
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            if (o0 + p >= BWt) continue;
+            const float2 lo = bf16x2_bits(own[p].x);
+            const float2 hi = bf16x2_bits(own[p].y);
+            const float o[4] = {lo.x + acc[p][0], lo.y + acc[p][1],
+                                hi.x + acc[p][2], hi.y + acc[p][3]};
+            if constexpr (kOut == kOutQ8) {
+              *reinterpret_cast<char4*>(out[p] + k) =
+                  make_char4(quantize_h2(o[0]), quantize_h2(o[1]),
+                             quantize_h2(o[2]), quantize_h2(o[3]));
+            } else if constexpr (kOut == kOutF32) {
+              *reinterpret_cast<float4*>(out[p] + k) =
+                  make_float4(o[0], o[1], o[2], o[3]);
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                amax[p] = fmaxf(amax[p], fabsf(o[i]));
+            } else {
+              const __nv_bfloat162 a = __floats2bfloat162_rn(o[0], o[1]);
+              const __nv_bfloat162 b = __floats2bfloat162_rn(o[2], o[3]);
+              *reinterpret_cast<uint2*>(out[p] + k) =
+                  make_uint2(*reinterpret_cast<const unsigned*>(&a),
+                             *reinterpret_cast<const unsigned*>(&b));
+            }
+          }
+        }
+        if constexpr (kOut == kOutF32) {
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            const float a = warp_max(amax[p]);
+            if (lane == 0 && o0 + p < BWt) pix_max[item + p] = a;
+          }
+        }
       }
-      const float2 own = load_bf16x2(hs + (size_t)hc * D + k);
-      if constexpr (kOut == kOutQ8) {
-        *reinterpret_cast<char2*>(static_cast<signed char*>(h2) + item * D +
-                                  k) =
-            make_char2(quantize_h2(own.x + ax), quantize_h2(own.y + ay));
-      } else if constexpr (kOut == kOutF32) {
-        const float vx = own.x + ax, vy = own.y + ay;
-        *reinterpret_cast<float2*>(static_cast<float*>(h2) + item * D + k) =
-            make_float2(vx, vy);
-        amax = fmaxf(amax, fmaxf(fabsf(vx), fabsf(vy)));
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(h2) +
-                                           item * D + k) =
-            __floats2bfloat162_rn(own.x + ax, own.y + ay);
+    };
+
+    // rows y0 - 1 .. y0 + 1 in flight together, the first two with their
+    // scene in their own node slots; then the rolling window: row t's
+    // edges, output row t and row t + 2's node, while row t + 3's copies
+    // are in flight
+    stage(y0 - 1, norm_row(y0 - 1) + D, NC);
+    stage(y0, norm_row(y0) + D, NC);
+    stage(y0 + 1, land, C);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncwarp();
+    normalise(y0 - 1, norm_row(y0 - 1) + D, NC);
+    normalise(y0, norm_row(y0) + D, NC);
+    __syncthreads();
+    for (int t = y0 - 1; t < ye; ++t) {
+      if (t >= 0) edges(t);
+      __syncthreads();
+      if (t >= y0) aggregate(t);
+      if (t + 2 <= ye) {
+        cp_async_wait<0>();
+        __syncwarp();
+        normalise(t + 2, land, C);
       }
-    }
-    if constexpr (kOut == kOutF32) {
-      amax = warp_max(amax);
-      if (lane == 0) pix_max[item] = amax;
+      __syncthreads();
+      if (t + 3 <= ye) {
+        stage(t + 3, land, C);
+        cp_async_commit();
+      }
     }
   }
+}
+
+// Blocks of the attention launch resident on one SM of the current card
+// at `smem` bytes of shared memory: asked once per card and size (the
+// query costs about as much as the launch).
+template <int kOut>
+cudaError_t attn_resident(size_t smem, int* blocks) {
+  static std::atomic<long long> known[kMaxDevices];  // smem << 8 | blocks
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const long long k = dev < kMaxDevices ? known[dev].load() : 0;
+  if (k >> 8 == (long long)smem) {
+    *blocks = (int)(k & 0xff);
+    return cudaSuccess;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, (const void*)gnn_attention_kernel<kOut>, ATTN_THREADS, smem);
+  if (err == cudaSuccess && dev < kMaxDevices)
+    known[dev].store((long long)smem << 8 | *blocks);
+  return err;
 }
 
 template <int kOut>
 int launch_attention(const int* parent_rows, const void* h, const void* scene,
                      void* h2, float* pix_max, int NK, int H, int W, int D,
                      int C, void* stream) {
-  // two blocks an SM at the paths' widths
-  int BR, BW;
-  const size_t smem = attn_tile(H, W, attn_pixel_bytes(D, C), 0,
-                                110 * 1024, &BR, &BW);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
+  // tiles as wide as the warps' columns; narrower where the shared memory
+  // would not fit (a wide D)
+  int BW = W < ATTN_MAX_BW ? W : ATTN_MAX_BW;
+  auto bytes = [&](int bw) {
+    return AttnLayout(W < bw + 2 ? W : bw + 2, D, C).bytes;
+  };
+  while (BW > 1 && bytes(BW) > ATTN_MAX_SMEM) BW = (BW + 1) / 2;
+  const size_t smem = bytes(BW);
+  if (smem > ATTN_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const void* kernel = (const void*)gnn_attention_kernel<kOut>;
   static SmemAttr attr;
-  cudaError_t err =
-      attr.raise((const void*)gnn_attention_kernel<kOut>, (int)smem);
+  cudaError_t err = attr.raise(kernel, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles_y = (H + BR - 1) / BR, tiles_x = (W + BW - 1) / BW;
-  gnn_attention_kernel<kOut><<<(unsigned)((long long)NK * tiles_y * tiles_x),
-                               ATTN_THREADS, smem, (cudaStream_t)stream>>>(
+  // one block per resident slot, each walking an equal share of the
+  // image rows: no wave of the grid runs short
+  int sms = 0, per_sm = 0;
+  err = sm_count(&sms);
+  if (err == cudaSuccess) err = attn_resident<kOut>(smem, &per_sm);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_x = (W + BW - 1) / BW;
+  const long long rows = (long long)NK * tiles_x * H;
+  const long long slots = (long long)sms * (per_sm > 1 ? per_sm : 1);
+  const long long grid = rows < slots ? rows : slots;
+  gnn_attention_kernel<kOut><<<(unsigned)grid, ATTN_THREADS, smem,
+                               (cudaStream_t)stream>>>(
       parent_rows, (const bf16*)h, (const bf16*)scene, h2, pix_max, H, W, D,
-      C, BR, BW, tiles_y, tiles_x);
+      C, BW, tiles_x, rows);
   return (int)cudaGetLastError();
 }
 

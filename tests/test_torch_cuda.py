@@ -13,12 +13,15 @@ and its gate launch on the plain version's own inputs, bf16 c' equal in
 at least 0.999 of entries and none more than one bf16 step off, a gate
 shown to reject two planted faults; K2/K3's gate launch on the plain
 h2_q held to the same gate, shown to reject three planted layout
-faults; the training attention's K4 (forward) and K5 (backward), max
-abs error 2e-2 x max |plain| (K4 also 2e-2), also at SimAug's shapes
-(N = 36 and 12) and with only the node rows requiring grad, the decodes
-that must run them, and a SimAug attack step's input gradient through
-them within 2e-2 relative L2 of the plain versions'. A CUDA kernel
-has no CPU mode, so without a GPU every test here skips.
+faults; the attention launch giving the same bits on two calls in each
+of its three outputs, its comparison with the plain h2 shown to reject
+a softmax that leaves out one neighbour; the training attention's K4
+(forward) and K5 (backward), max abs error 2e-2 x max |plain| (K4 also
+2e-2), also at SimAug's shapes (N = 36 and 12) and with only the node
+rows requiring grad, the decodes that must run them, and a SimAug
+attack step's input gradient through them within 2e-2 relative L2 of
+the plain versions'. A CUDA kernel has no CPU mode, so without a GPU
+every test here skips.
 
 This file imports neither jax nor tests/conftest.py's fixtures, so it
 also runs where jax is not installed:
@@ -81,7 +84,8 @@ from multiverse_torch.data.multiview import (
     synthesize_multiview_split,
 )
 from multiverse_torch.models import simaug
-from multiverse_torch.ops import fused_gnn
+from multiverse_torch.ops import fused_decode, fused_gnn
+from multiverse_torch.ops.gnn import gnn_neighbor_mask
 from multiverse_torch.ops.fused_gnn import (
     GnnDense,
     gnn_dense_bwd,
@@ -98,6 +102,9 @@ TOL = 2e-2
 # order than the plain product's, and where the two terms of c' cancel
 # that noise flips the sign of a c' near 0
 C_FLOOR = 2.0 ** -6
+# K1's attention launch: its bf16 h2 equal to the plain h2 in at least this
+# share of entries (chip_smoke.py's H2_SAME_MIN)
+H2_SAME_MIN = 0.9999
 
 
 @pytest.fixture
@@ -131,6 +138,7 @@ def _operands(NK, H, W, D, E, C, seed=0):
     (6, 6, 8, 64, 16, 4),        # M = 288: a ragged last tile
     (5, 7, 9, 32, 8, 0),         # odd grid, no scene features
     (40, 18, 32, 256, 32, 64),   # the beam decode's widths
+    (320, 18, 32, 256, 32, 64),  # the beam decode's rows: 16 x K = 20
 ])
 def test_kernel_matches_plain_version(cuda, NK, H, W, D, E, C):
     ops = {k: None if v is None else v.to(cuda)
@@ -150,6 +158,9 @@ def test_kernel_matches_plain_version(cuda, NK, H, W, D, E, C):
     (6, 6, 8, 64, 16, 4),        # image-row boxes taller than the grid
     (5, 7, 9, 32, 8, 0),         # gathered A, D = 32, no scene features
     (40, 18, 32, 256, 32, 64),   # the beam decode's widths
+    (320, 18, 32, 256, 32, 64),  # the beam decode's rows: 16 x K = 20
+    (60, 11, 32, 256, 32, 64),   # attention runs of rows that start and
+                                 # end inside an image
 ])
 def test_k1_launches_alone_match_their_plain_versions(cuda, NK, H, W, D, E,
                                                       C):
@@ -205,6 +216,52 @@ def test_k1_gate_rejects_planted_faults(cuda):
         _, got = gate_lstm_bf16_ref(wf, *gate)
         same, worst = c_agreement(got, want, C_FLOOR)
         assert same < 0.999 or worst > 1, (what, same, worst)
+
+
+@pytest.mark.parametrize("NK,H,W,D,C", [
+    (320, 18, 32, 256, 64),      # the beam decode's rows
+    (60, 11, 32, 256, 64),       # runs that start and end inside an image
+    (3, 18, 64, 256, 64),        # two tiles across a row
+])
+def test_attention_launch_is_deterministic(cuda, NK, H, W, D, C):
+    """Two calls of the attention launch give the same bits in each of
+    its outputs: K1's bf16 h2, K2's int8 h2_q, K7's f32 h2_f and r_p;
+    the bf16 h2 within TOL of the plain one."""
+    ops = {k: None if v is None else v.to(cuda)
+           for k, v in _operands(NK, H, W, D, 8, C).items()}
+    args = (ops["parent_rows"], ops["h"], ops["scene"], H, W)
+    assert _err(gate_input_bf16(*args), gate_input_bf16_ref(*args)) <= TOL
+    for launch in (lambda: (gate_input_bf16(*args),),
+                   lambda: (gate_input_q8(*args, False),),
+                   lambda: gate_inputs_q8dyn(*args)):
+        first, second = launch(), launch()
+        for a, b in zip(first, second):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_attention_comparison_rejects_a_neighbour_left_out(cuda):
+    """The attention launch's comparison with its plain h2 (within TOL,
+    bf16 h2 equal in at least H2_SAME_MIN of entries) rejects a plain
+    version whose softmax leaves out each pixel's east neighbour."""
+    NK, H, W, D, C = 320, 18, 32, 256, 64
+    ops = {k: None if v is None else v.to(cuda)
+           for k, v in _operands(NK, H, W, D, 32, C).items()}
+    args = (ops["parent_rows"], ops["h"], ops["scene"], H, W)
+    h2 = gate_input_bf16(*args)
+    want = gate_input_bf16_ref(*args)
+    assert _err(h2, want) <= TOL and _same(h2, want) >= H2_SAME_MIN
+
+    def east_left_out(H, W, device):
+        mask = torch.from_numpy(gnn_neighbor_mask(H, W)).to(device)
+        q = torch.arange(H * W, device=device)
+        east = q[(q % W) < W - 1]
+        mask[east, east + 1] = 0
+        return (1.0 - mask) * -1e30
+
+    with mock.patch.object(fused_decode, "_neighbor_bias", east_left_out):
+        fault = gate_input_bf16_ref(*args)
+    assert _err(h2, fault) > TOL, _err(h2, fault)
+    assert _same(h2, fault) < H2_SAME_MIN, _same(h2, fault)
 
 
 def test_kernel_rejects_operands_it_does_not_take(cuda):
@@ -589,6 +646,10 @@ def test_composed_beam_decode_runs_k4(cuda):
 
 def _err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def _same(a, b) -> float:
+    return float((a == b).float().mean())
 
 
 def _check_outputs(out, ref):
