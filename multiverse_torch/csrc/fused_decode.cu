@@ -636,6 +636,21 @@ class_readout_kernel(const bf16* __restrict__ h_new,  // [NK, HW, D]
   }
 }
 
+// The floats with bits lo .. hi on which the gate epilogue's reciprocal
+// (rcp_rn_ge1) and __frcp_rn give different bits, counted into *bad.
+__global__ void rcp_rn_check_kernel(unsigned lo, unsigned hi,
+                                    unsigned long long* bad) {
+  unsigned long long n = 0;
+  const unsigned step = gridDim.x * blockDim.x;
+  for (unsigned long long b =
+           (unsigned long long)lo + blockIdx.x * blockDim.x + threadIdx.x;
+       b <= hi; b += step) {
+    const float y = __uint_as_float((unsigned)b);
+    n += __float_as_uint(rcp_rn_ge1(y)) != __float_as_uint(__frcp_rn(y));
+  }
+  if (n) atomicAdd(bad, n);
+}
+
 }  // namespace
 
 extern "C" {
@@ -707,6 +722,17 @@ int mv_class_readout(const void* h_new, const void* w, int ldw, float* logits,
   class_readout_kernel<<<(unsigned)((long long)NK * bands), READ_THREADS,
                          smem, (cudaStream_t)stream>>>(
       (const bf16*)h_new, (const bf16*)w, ldw, logits, H, W, D, TR, bands);
+  return (int)cudaGetLastError();
+}
+
+// *bad (zeroed by the caller) += the floats with bits lo .. hi on which
+// the gate epilogue's reciprocal differs from __frcp_rn
+int mv_rcp_rn_mismatches(unsigned lo, unsigned hi, unsigned long long* bad,
+                         void* stream) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  rcp_rn_check_kernel<<<sms * 8, 256, 0, (cudaStream_t)stream>>>(lo, hi, bad);
   return (int)cudaGetLastError();
 }
 

@@ -163,8 +163,32 @@ __device__ __forceinline__ unsigned quantize4(float4 x, float inv) {
   return __byte_perm(lo, hi, 0x5410);
 }
 
+// 1 / y rounded to nearest even, the bits of __frcp_rn(y), for y >= 1
+// and NaN, with no call. __frcp_rn keeps its rare cases in a subroutine,
+// and a call at each of the epilogue's 96 sigmoids a thread bound the
+// registers around it: the accumulators spilled and the launch ran
+// 10-16% slower. One Newton step on rcp.approx gives __frcp_rn's bits for every
+// float in [1, 2^126) and every NaN; from 2^126 on 1 / y is subnormal,
+// and comes from double precision (mv_rcp_rn_mismatches checks all of
+// them on the card).
+__device__ __forceinline__ float rcp_rn_ge1(float y) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(y));
+  r = fmaf(r, fmaf(-y, r, 1.f), r);
+  if (y >= 0x1p126f) {
+    const double d = y;
+    double q;
+    asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(q) : "d"(d));
+    q = fma(q, fma(-d, q, 1.0), q);
+    q = fma(q, fma(-d, q, 1.0), q);
+    r = y == INFINITY ? 0.f : __double2float_rn(q);
+  }
+  return r;
+}
+
+// 1 / (1 + exp(-x)), the reciprocal rounded as __frcp_rn rounds it
 __device__ __forceinline__ float sigmoid_rn(float x) {
-  return __frcp_rn(__fadd_rn(1.f, expf(-x)));
+  return rcp_rn_ge1(__fadd_rn(1.f, expf(-x)));
 }
 
 __device__ __forceinline__ void fence_proxy_async() {
@@ -313,8 +337,8 @@ __device__ __forceinline__ Unit unit_at(const GateArgs& g, long long u) {
   Unit a;
   a.r = a.y0 = 0;
   if (g.upi > 0) {
-    a.r = (int)(u / g.upi);
-    a.y0 = (int)(u % g.upi) * (64 / g.W);
+    a.r = (int)u / g.upi;
+    a.y0 = (int)u % g.upi * (64 / g.W);
     a.m0 = (long long)a.r * HW + a.y0 * g.W;
     a.valid = a.r < g.NK ? min(64, HW - a.y0 * g.W) : 0;
   } else {
@@ -419,8 +443,8 @@ gate_lstm_wgmma_kernel(const __grid_constant__ CUtensorMap map_we,
   auto row_info = [&](int i, const Unit (&un)[WGM]) {
     const Unit& u = un[i / 64];
     const bool ok = i % 64 < u.valid;
-    const long long mm = ok ? u.m0 + i % 64 : 0;
-    const int r = (int)(mm / HW), p = (int)(mm - (long long)r * HW);
+    const int mm = ok ? (int)u.m0 + i % 64 : 0;
+    const int r = mm / HW, p = mm - r * HW;
     ry[i] = ok ? p / W : -4;
     rx[i] = p % W;
     eoff[i] = (long long)(g.prev_ids ? g.prev_ids[r] : r) * HW * E;
@@ -631,8 +655,8 @@ gate_lstm_wgmma_kernel(const __grid_constant__ CUtensorMap map_we,
       for (int half = 0; half < 2; ++half) {
         const int l = row0 % 64 + 8 * half;
         ok[half] = l < mine.valid;
-        const long long m = ok[half] ? mine.m0 + l : 0;
-        const int r = (int)(m / HW), pix = (int)(m - (long long)r * HW);
+        const int m = ok[half] ? (int)mine.m0 + l : 0;
+        const int r = m / HW, pix = m - r * HW;
         cpar[half] =
             g.c +
             ((long long)(g.parent_rows ? g.parent_rows[r] : r) * HW + pix) *
@@ -894,7 +918,9 @@ int launch_gate(const void* w_e, int K_e, const void* w_h, int K_h,
     if (err != cudaSuccess) return (int)err;
     g.upi = (g.H + rows - 1) / rows;
   }
+  // pixel indices are ints in the kernel (no 64-bit division, a call)
   const long long M = (long long)g.NK * g.H * g.W;
+  if (M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const long long units =
       g.upi > 0 ? (long long)g.NK * g.upi : (M + 63) / 64;
   const long long tiles = (units + WGM - 1) / WGM * (g.D / T::DT);

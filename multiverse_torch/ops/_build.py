@@ -49,6 +49,7 @@ _SIGNATURES = {
     "mv_gate_lstm_q8dyn": [_P] * 13 + [_I] * 5 + [ctypes.c_float, _P],
     "mv_gnn_dense_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mv_gnn_dense_bwd": [_P] * 8 + [_I] * 5 + [_P],
+    "mv_rcp_rn_mismatches": [ctypes.c_uint, ctypes.c_uint, _P, _P],
 }
 
 

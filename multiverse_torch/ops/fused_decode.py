@@ -743,6 +743,20 @@ def gate_lstm_bf16(cell_w, cell_b, prev_ids, parent_rows, emb_table, h2, c,
 gate_lstm_bf16.launches = 0
 
 
+def rcp_rn_mismatches(lo: int, hi: int, device: torch.device) -> int:
+    """The floats with bits ``lo`` .. ``hi`` on which the gate launch's
+    epilogue reciprocal (its sigmoids' 1 / (1 + exp(-x))) and CUDA's
+    ``__frcp_rn`` give different bits, counted on the card."""
+    from multiverse_torch.ops._build import check, load_library
+
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    lib = load_library()
+    check(lib, lib.mv_rcp_rn_mismatches(
+        lo, hi, bad.data_ptr(), torch.cuda.current_stream(device).cuda_stream),
+        "rcp_rn_mismatches")
+    return int(bad.item())
+
+
 def class_readout(h_out: torch.Tensor, h2g_w: torch.Tensor, H: int,
                   W: int) -> torch.Tensor:
     """The readout launch alone: logits [NK*HW, 1] f32 of bf16 h'
