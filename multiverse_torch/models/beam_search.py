@@ -12,12 +12,12 @@ every top-k here is a stable descending sort: among equal scores the
 lower index wins, as with ``jax.lax.top_k``, which the exactness of the
 two-stage selector relies on.
 
-On the bf16 path with the GNN on, each step is one call of the fused
-decode step of ``cfg.decode_quant``'s tier
-(:func:`multiverse_torch.ops.make_decode_step`): the state is carried in the
-order the step wrote it, and the next step reads each row's parent
-through ``parent_rows``. Every other configuration runs the composed
-step (GNN, cell, readout) with an explicit parent gather.
+Where :func:`multiverse_torch.ops.quant.fused_decode` gives a fused
+decode step (bf16, the GNN on) and no states are saved, each step is one
+call of it: the state is carried in the order the step wrote it, and
+the next step reads each row's parent through ``parent_rows``. Every
+other configuration runs the composed step (GNN, cell, readout) with an
+explicit parent gather.
 
 Under ``torch.profiler`` the search records its spans
 (:func:`multiverse_torch.utils.span`): ``beam.prepare`` (the embedding
@@ -35,15 +35,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from multiverse_torch.config import MultiverseConfig
-from multiverse_torch.geometry import one_hot_grid
 from multiverse_torch.ops import (
     ConvLSTMState,
     conv2d,
     convlstm_step,
     gnn_step_auto,
-    make_decode_step,
 )
 from multiverse_torch.ops.layers import get_activation
+from multiverse_torch.ops.quant import cell_embedding_table, fused_decode
 from multiverse_torch.utils import count, span
 
 NEG_INF = -1e30
@@ -149,12 +148,6 @@ def diverse_beam_search(
     h2g_p = scale_params["h2g_class"]
 
     with span("beam.prepare"):
-        # the decoder input is always a one-hot cell, so the embedding of
-        # every cell is one conv over the HW basis maps, gathered by id
-        basis = one_hot_grid(torch.arange(HW, device=dev), h, w)
-        emb_table = conv2d(emb_p, basis, activation=act,
-                           compute_dtype=compute_dtype)      # [HW, h, w, E]
-
         def tile(x):
             return x[:, None].expand((N, K) + tuple(x.shape[1:]))
 
@@ -171,24 +164,22 @@ def diverse_beam_search(
                                  device=dev).expand(N, K)
         prev_parents = beam_iota
 
-        fused = (compute_dtype == torch.bfloat16 and cfg.allow_pallas
-                 and use_gnn and not save_states)
+        fused = None if save_states else fused_decode(
+            cfg, compute_dtype, use_gnn, emb_p, cell_p, h2g_p, state.h,
+            state.c, scene_nk)
         twostage = (cfg.beam_select == "twostage" and K <= HW
                     and (not cfg.diverse_beam or cfg.diverse_gamma <= 1.0))
         select_fn = (select_successors_twostage if twostage
                      else select_successors_dense)
         if fused:
-            bf = torch.bfloat16
-            cell_b = cell_p["bias"].float().contiguous()
-            h2g_w = h2g_p["w"].to(bf).reshape(9, D).t().contiguous()  # [D, 9]
-            # the tier's operands are prepared once per decode
-            step = make_decode_step(cfg.decode_quant, cell_p, emb_table)
-            scene_rows = None if scene_nk is None else \
-                scene_nk.to(bf).reshape(N * K * HW, -1).contiguous()
-            h_rows = _fold(state.h).reshape(N * K * HW, D).contiguous()
-            c_rows = _fold(state.c).reshape(N * K * HW, D).contiguous()
+            step, h_rows, c_rows = fused
             row0 = torch.arange(N, dtype=torch.int32,
                                 device=dev)[:, None] * K
+        else:
+            # the decoder input is always a one-hot cell: its embedding is
+            # a row of the table, gathered by id
+            emb_table = cell_embedding_table(emb_p, h, w, act,
+                                             compute_dtype)  # [HW, h, w, E]
 
     all_ids, all_parents, all_logits, all_states = [], [], [], []
     for t in range(T_pred):
@@ -200,9 +191,8 @@ def diverse_beam_search(
                     ids_flat = prev_ids.reshape(-1).contiguous()
                     parents_flat = (row0 + prev_parents).reshape(-1) \
                         .contiguous()
-                    h_rows, c_rows, logits_t = step(
-                        cell_b, h2g_w, ids_flat, parents_flat, h_rows,
-                        c_rows, scene_rows, h, w)
+                    h_rows, c_rows, logits_t = step(ids_flat, parents_flat,
+                                                    h_rows, c_rows)
             else:
                 emb = emb_table[prev_ids.reshape(-1).long()]
                 hh = _fold(state.h)

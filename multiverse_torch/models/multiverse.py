@@ -31,10 +31,10 @@ from multiverse_torch.ops import (
     convlstm_step,
     gnn_step_auto,
     init_conv,
-    make_decode_step,
 )
 from multiverse_torch.ops.convlstm import apply_dropout, dropout_mask
 from multiverse_torch.ops.layers import get_activation, l2_weight_decay
+from multiverse_torch.ops.quant import fused_decode
 
 
 class Batch(NamedTuple):
@@ -194,11 +194,13 @@ def greedy_decode(
     input with a fresh mask per step (train time); ``cfg.remat``
     checkpoints each step, with the dropout masks drawn outside it.
 
-    With ``allow_fused`` the bf16 argmax class decode with the GNN on
-    runs the fused decode step instead (K1, or K2/K3/K7 under
-    ``cfg.decode_quant``), as ``multiverse_tpu`` does: it carries the
-    argmax cell id, looks its embedding up in a table of every cell's
-    embedding, and passes identity parents."""
+    With ``allow_fused``, one-hot feedback and no dropout, the class
+    decode runs the fused decode step where
+    :func:`multiverse_torch.ops.quant.fused_decode` gives one (bf16, the
+    GNN on; K1, or K2/K3/K7 under ``cfg.decode_quant``), as
+    ``multiverse_tpu`` does: it carries the argmax cell id, looks its
+    embedding up in a table of every cell's embedding, and passes
+    identity parents."""
     if feedback not in ("onehot", "raw", "teacher"):
         raise ValueError(
             f"feedback must be onehot|raw|teacher, got {feedback!r}")
@@ -207,14 +209,22 @@ def greedy_decode(
     emb_p = scale_params[emb_name]
     cell_p = scale_params[cell_name]
     h2g_p = scale_params[h2g_name]
-    if (allow_fused and not dropout and cfg.allow_pallas
-            and feedback == "onehot" and use_gnn
-            and compute_dtype == torch.bfloat16
-            and first_input.shape[-1] == 1 and h2g_p["w"].shape[-1] == 1):
-        return _greedy_decode_fused(emb_p, cell_p, h2g_p, cfg, act,
-                                    first_input, init_state, T_pred,
-                                    scene_mean)
     N, h, w, _ = first_input.shape
+    fused = None
+    if allow_fused and not dropout and feedback == "onehot":
+        fused = fused_decode(cfg, compute_dtype, use_gnn, emb_p, cell_p,
+                             h2g_p, init_state.h, init_state.c, scene_mean)
+    if fused is not None:
+        ids = torch.argmax(first_input.reshape(N, h * w), dim=1).int()
+        identity = torch.arange(N, dtype=torch.int32, device=ids.device)
+        hh, c = fused.h, fused.c
+        outs, readouts = [], []
+        for _ in range(T_pred):
+            hh, c, logits = fused.step(ids, identity, hh, c)
+            ids = torch.argmax(logits.reshape(N, h * w), dim=1).int()
+            outs.append(hh.reshape(N, h, w, -1))
+            readouts.append(logits.reshape(N, h, w, 1))
+        return torch.stack(readouts, dim=1), torch.stack(outs, dim=1)
     emb_shape = (N, h, w, cfg.emb_size)
 
     def step(t, x, c, hh, keep):
@@ -251,36 +261,6 @@ def greedy_decode(
             out, logits, x, c, hh = step(t, x, c, hh, keep)
         outs.append(out)
         readouts.append(logits)
-    return torch.stack(readouts, dim=1), torch.stack(outs, dim=1)
-
-
-def _greedy_decode_fused(emb_p, cell_p, h2g_p, cfg, act, first_input,
-                         init_state, T_pred, scene_mean):
-    """The fused form of the argmax class decode
-    (``multiverse_tpu/models/multiverse.py:240-278``)."""
-    N, H, W, _ = first_input.shape
-    HW = H * W
-    D = init_state.h.shape[-1]
-    dev = first_input.device
-    bf = torch.bfloat16
-    emb_table = conv2d(emb_p, one_hot_grid(torch.arange(HW, device=dev), H, W),
-                       activation=act, compute_dtype=bf)
-    ids = torch.argmax(first_input.reshape(N, HW), dim=1).int()
-    identity = torch.arange(N, dtype=torch.int32, device=dev)
-    h_rows = init_state.h.to(bf).reshape(N * HW, D).contiguous()
-    c_rows = init_state.c.to(bf).reshape(N * HW, D).contiguous()
-    scene_rows = None if scene_mean is None else \
-        scene_mean.to(bf).reshape(N * HW, -1).contiguous()
-    cell_b = cell_p["bias"].float().contiguous()
-    h2g_w = h2g_p["w"].to(bf).reshape(9, D).t().contiguous()    # [D, 9]
-    step = make_decode_step(cfg.decode_quant, cell_p, emb_table)
-    outs, readouts = [], []
-    for _ in range(T_pred):
-        h_rows, c_rows, logits = step(cell_b, h2g_w, ids, identity, h_rows,
-                                      c_rows, scene_rows, H, W)
-        ids = torch.argmax(logits.reshape(N, HW), dim=1).int()
-        outs.append(h_rows.reshape(N, H, W, D))
-        readouts.append(logits.reshape(N, H, W, 1))
     return torch.stack(readouts, dim=1), torch.stack(outs, dim=1)
 
 

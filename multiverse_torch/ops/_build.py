@@ -7,7 +7,8 @@ loaded with ctypes. The library goes to ``multiverse_torch/_build/``
 under a name keyed by a hash of the sources and the flags, so an edit
 rebuilds and an unchanged tree loads the existing file. Only sources in
 the package are compiled: nothing outside the checkout is needed but
-the CUDA toolkit.
+the CUDA toolkit. The kernel wrappers call every entry point through
+:func:`launch`.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -141,7 +144,14 @@ def load_library() -> ctypes.CDLL:
         return _lib
 
 
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+def launch(name: str, *args, device) -> None:
+    """Call the entry point ``mv_<name>`` with ``args`` and the current
+    stream of ``device`` last, loading the library at first use; a
+    ``cudaError_t`` other than success raises a ``RuntimeError`` that
+    names the launch."""
+    lib = load_library()
+    err = getattr(lib, "mv_" + name)(
+        *args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError("CUDA launch of %s failed: %s (%d)" % (
-            what, lib.mv_error_string(err).decode(), err))
+            name, lib.mv_error_string(err).decode(), err))

@@ -89,11 +89,8 @@ def convlstm_step_fused(
     w = None if weights is not None else \
         params["kernel"].to(bf).reshape(-1, 4 * D).contiguous()
     weights = _gate_weights(fn, w, b, weights, Cx, D, dev, "kernel")
-    from multiverse_torch.ops._build import check, load_library
-
-    h_out, c_out = _gate_launch(load_library(), check, weights, b, None, None,
-                                x_rows, h_rows, c_rows, N, H, W, D,
-                                forget_bias)
+    h_out, c_out = _gate_launch(weights, b, None, None, x_rows, h_rows, c_rows,
+                                N, H, W, D, forget_bias)
     h_out, c_out = h_out.reshape(N, H, W, D), c_out.reshape(N, H, W, D)
     convlstm_step_fused.launches += 1
     return h_out, ConvLSTMState(c=c_out, h=h_out)

@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from multiverse_torch.geometry import one_hot_grid
+from multiverse_torch.ops._build import launch
 from multiverse_torch.ops.gate_layout import GateWeights, prepare_gate_weights
 from multiverse_torch.ops.gnn import gnn_neighbor_mask
 from multiverse_torch.ops.layers import conv2d
@@ -585,40 +586,35 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _readout_launch(lib, check, h_out, h2g_w, NK, H, W, D):
+def _readout_launch(h_out, h2g_w, NK, H, W, D):
     logits = torch.empty((NK * H * W, 1), dtype=torch.float32,
                          device=h_out.device)
-    check(lib, lib.mv_class_readout(
-        h_out.data_ptr(), h2g_w.data_ptr(), h2g_w.shape[1],
-        logits.data_ptr(), NK, H, W, D, _stream(h_out)), "class_readout")
+    launch("class_readout", h_out.data_ptr(), h2g_w.data_ptr(),
+           h2g_w.shape[1], logits.data_ptr(), NK, H, W, D,
+           device=h_out.device)
     return logits
 
 
-def _attention_launch(lib, check, parent_rows, h, scene, NK, H, W, D, C):
+def _attention_launch(parent_rows, h, scene, NK, H, W, D, C):
     """K1's attention launch: h2 = bf16(h + agg) [NK*HW, D]."""
     h2 = torch.empty((NK * H * W, D), dtype=torch.bfloat16, device=h.device)
-    check(lib, lib.mv_gnn_attention(
-        _ptr(parent_rows), h.data_ptr(), _ptr(scene), h2.data_ptr(),
-        NK, H, W, D, C, _stream(h)), "gnn_attention")
+    launch("gnn_attention", _ptr(parent_rows), h.data_ptr(), _ptr(scene),
+           h2.data_ptr(), NK, H, W, D, C, device=h.device)
     return h2
 
 
-def _gate_launch(lib, check, weights, cell_b, prev_ids, parent_rows, emb,
-                 h2, c, NK, H, W, D, forget_bias, emb_bg=None, emb_dev=None):
+def _gate_launch(weights, cell_b, prev_ids, parent_rows, emb, h2, c, NK, H,
+                 W, D, forget_bias, emb_bg=None, emb_dev=None):
     """The bf16 gate launch (K1; K8 and K6 with null ids and parents; K9
     with the tables): (h', c') [NK*HW, D] bf16."""
     M = NK * H * W
     h_out = torch.empty((M, D), dtype=torch.bfloat16, device=h2.device)
     c_out = torch.empty((M, D), dtype=torch.bfloat16, device=h2.device)
-    check(lib, lib.mv_gate_lstm(
-        _ptr(prev_ids), _ptr(parent_rows), _ptr(emb), h2.data_ptr(),
-        c.data_ptr(), weights.w_t.data_ptr(), cell_b.data_ptr(),
-        _ptr(emb_bg), _ptr(emb_dev), h_out.data_ptr(), c_out.data_ptr(),
-        NK, H, W, D, weights.E, float(forget_bias), _stream(h2)), "gate_lstm")
+    launch("gate_lstm", _ptr(prev_ids), _ptr(parent_rows), _ptr(emb),
+           h2.data_ptr(), c.data_ptr(), weights.w_t.data_ptr(),
+           cell_b.data_ptr(), _ptr(emb_bg), _ptr(emb_dev), h_out.data_ptr(),
+           c_out.data_ptr(), NK, H, W, D, weights.E, float(forget_bias),
+           device=h2.device)
     return h_out, c_out
 
 
@@ -679,14 +675,10 @@ def decode_step_gathered(
                                     prev_ids, parent_rows)
     weights = _check_k1_gate(fn, cell_w, cell_b, emb_table, weights, H, W, D,
                              dev)
-    from multiverse_torch.ops._build import check, load_library
-
-    lib = load_library()
-    h2 = _attention_launch(lib, check, parent_rows, h, scene, NK, H, W, D, C)
-    h_out, c_out = _gate_launch(lib, check, weights, cell_b, prev_ids,
-                                parent_rows, emb_table, h2, c, NK, H, W, D,
-                                forget_bias)
-    logits = _readout_launch(lib, check, h_out, h2g_w, NK, H, W, D)
+    h2 = _attention_launch(parent_rows, h, scene, NK, H, W, D, C)
+    h_out, c_out = _gate_launch(weights, cell_b, prev_ids, parent_rows,
+                                emb_table, h2, c, NK, H, W, D, forget_bias)
+    logits = _readout_launch(h_out, h2g_w, NK, H, W, D)
     decode_step_gathered.launches += 1
     return h_out, c_out, logits
 
@@ -703,10 +695,7 @@ def gate_input_bf16(parent_rows, h, scene, H: int, W: int) -> torch.Tensor:
     fn = "gate_input_bf16"
     _, _, NK, D, C = _check_state(fn, h, None, scene, None, H, W,
                                   parent_rows=parent_rows)
-    from multiverse_torch.ops._build import check, load_library
-
-    h2 = _attention_launch(load_library(), check, parent_rows, h, scene, NK,
-                           H, W, D, C)
+    h2 = _attention_launch(parent_rows, h, scene, NK, H, W, D, C)
     gate_input_bf16.launches += 1
     return h2
 
@@ -731,11 +720,8 @@ def gate_lstm_bf16(cell_w, cell_b, prev_ids, parent_rows, emb_table, h2, c,
     _check_cuda(fn, "h2", h2, torch.bfloat16, (NK * H * W, D), dev)
     weights = _check_k1_gate(fn, cell_w, cell_b, emb_table, weights, H, W, D,
                              dev)
-    from multiverse_torch.ops._build import check, load_library
-
-    out = _gate_launch(load_library(), check, weights, cell_b, prev_ids,
-                       parent_rows, emb_table, h2, c, NK, H, W, D,
-                       forget_bias)
+    out = _gate_launch(weights, cell_b, prev_ids, parent_rows, emb_table, h2,
+                       c, NK, H, W, D, forget_bias)
     gate_lstm_bf16.launches += 1
     return out
 
@@ -747,13 +733,8 @@ def rcp_rn_mismatches(lo: int, hi: int, device: torch.device) -> int:
     """The floats with bits ``lo`` .. ``hi`` on which the gate launch's
     epilogue reciprocal (its sigmoids' 1 / (1 + exp(-x))) and CUDA's
     ``__frcp_rn`` give different bits, counted on the card."""
-    from multiverse_torch.ops._build import check, load_library
-
     bad = torch.zeros(1, dtype=torch.int64, device=device)
-    lib = load_library()
-    check(lib, lib.mv_rcp_rn_mismatches(
-        lo, hi, bad.data_ptr(), torch.cuda.current_stream(device).cuda_stream),
-        "rcp_rn_mismatches")
+    launch("rcp_rn_mismatches", lo, hi, bad.data_ptr(), device=device)
     return int(bad.item())
 
 
@@ -767,9 +748,7 @@ def class_readout(h_out: torch.Tensor, h2g_w: torch.Tensor, H: int,
         return class_readout_ref(h_out, h2g_w, H, W)
     fn = "class_readout"
     _, _, NK, D, _ = _check_state(fn, h_out, None, None, h2g_w, H, W)
-    from multiverse_torch.ops._build import check, load_library
-
-    logits = _readout_launch(load_library(), check, h_out, h2g_w, NK, H, W, D)
+    logits = _readout_launch(h_out, h2g_w, NK, H, W, D)
     class_readout.launches += 1
     return logits
 
@@ -787,10 +766,8 @@ def gate_input_q8(parent_rows, h, scene, H, W,
     fn = "gate_input_q8"
     _, _, NK, D, C = _check_state(fn, h, None, scene, None, H, W,
                                   parent_rows=parent_rows)
-    from multiverse_torch.ops._build import check, load_library
-
-    h2_q = _attention_q8_launch(load_library(), check, parent_rows, h,
-                                scene, NK, H, W, D, C, attn_q8)
+    h2_q = _attention_q8_launch(parent_rows, h, scene, NK, H, W, D, C,
+                                attn_q8)
     gate_input_q8.launches += 1
     return h2_q
 
@@ -798,15 +775,11 @@ def gate_input_q8(parent_rows, h, scene, H, W,
 gate_input_q8.launches = 0
 
 
-def _attention_q8_launch(lib, check, parent_rows, h, scene, NK, H, W, D, C,
-                         attn_q8):
+def _attention_q8_launch(parent_rows, h, scene, NK, H, W, D, C, attn_q8):
     h2_q = torch.empty((NK * H * W, D), dtype=torch.int8, device=h.device)
-    launch = lib.mv_gnn_attention_q8 if attn_q8 else lib.mv_gnn_attention_h2q
-    check(lib, launch(
-        parent_rows.data_ptr(), h.data_ptr(),
-        None if scene is None else scene.data_ptr(), h2_q.data_ptr(),
-        NK, H, W, D, C, torch.cuda.current_stream(h.device).cuda_stream),
-        "gnn_attention_q8" if attn_q8 else "gnn_attention_h2q")
+    launch("gnn_attention_q8" if attn_q8 else "gnn_attention_h2q",
+           parent_rows.data_ptr(), h.data_ptr(), _ptr(scene),
+           h2_q.data_ptr(), NK, H, W, D, C, device=h.device)
     return h2_q
 
 
@@ -841,15 +814,11 @@ def decode_step_gathered_q8(
     dev, HW, NK, D, C = _check_state(fn, h, c, scene, h2g_w, H, W,
                                      prev_ids, parent_rows)
     _check_q8_operands(fn, quant, cell_b, H, W, D, dev)
-    from multiverse_torch.ops._build import check, load_library
-
-    lib = load_library()
-    h2_q = _attention_q8_launch(lib, check, parent_rows, h, scene, NK, H, W,
-                                D, C, attn_q8)
-    h_out, c_out = _gate_lstm_q8_launch(lib, check, quant, cell_b, prev_ids,
-                                        parent_rows, h2_q, c, NK, H, W, D,
-                                        forget_bias)
-    logits = _readout_launch(lib, check, h_out, h2g_w, NK, H, W, D)
+    h2_q = _attention_q8_launch(parent_rows, h, scene, NK, H, W, D, C,
+                                attn_q8)
+    h_out, c_out = _gate_lstm_q8_launch(quant, cell_b, prev_ids, parent_rows,
+                                        h2_q, c, NK, H, W, D, forget_bias)
+    logits = _readout_launch(h_out, h2g_w, NK, H, W, D)
     decode_step_gathered_q8.launches["int8a" if attn_q8 else "int8"] += 1
     return h_out, c_out, logits
 
@@ -871,19 +840,17 @@ def _check_q8_operands(fn, quant, cell_b, H, W, D, dev):
     _check_cuda(fn, "cell_b", cell_b, torch.float32, (4 * D,), dev)
 
 
-def _gate_lstm_q8_launch(lib, check, quant, cell_b, prev_ids, parent_rows,
-                         h2_q, c, NK, H, W, D, forget_bias):
+def _gate_lstm_q8_launch(quant, cell_b, prev_ids, parent_rows, h2_q, c, NK,
+                         H, W, D, forget_bias):
     dev = c.device
     M = NK * H * W
     h_out = torch.empty((M, D), dtype=torch.bfloat16, device=dev)
     c_out = torch.empty((M, D), dtype=torch.bfloat16, device=dev)
-    check(lib, lib.mv_gate_lstm_q8(
-        prev_ids.data_ptr(), parent_rows.data_ptr(), quant.emb_q.data_ptr(),
-        h2_q.data_ptr(), c.data_ptr(), quant.w_qt.data_ptr(),
-        quant.t_c.data_ptr(), cell_b.data_ptr(), h_out.data_ptr(),
-        c_out.data_ptr(), NK, H, W, D, quant.emb_q.shape[-1],
-        float(forget_bias), torch.cuda.current_stream(dev).cuda_stream),
-        "gate_lstm_q8")
+    launch("gate_lstm_q8", prev_ids.data_ptr(), parent_rows.data_ptr(),
+           quant.emb_q.data_ptr(), h2_q.data_ptr(), c.data_ptr(),
+           quant.w_qt.data_ptr(), quant.t_c.data_ptr(), cell_b.data_ptr(),
+           h_out.data_ptr(), c_out.data_ptr(), NK, H, W, D,
+           quant.emb_q.shape[-1], float(forget_bias), device=dev)
     return h_out, c_out
 
 
@@ -903,11 +870,8 @@ def gate_lstm_q8(quant, cell_b, prev_ids, parent_rows, h2_q, c,
                                     parent_rows)
     _check_cuda(fn, "h2_q", h2_q, torch.int8, (NK * H * W, D), dev)
     _check_q8_operands(fn, quant, cell_b, H, W, D, dev)
-    from multiverse_torch.ops._build import check, load_library
-
-    out = _gate_lstm_q8_launch(load_library(), check, quant, cell_b,
-                               prev_ids, parent_rows, h2_q, c, NK, H, W, D,
-                               forget_bias)
+    out = _gate_lstm_q8_launch(quant, cell_b, prev_ids, parent_rows, h2_q, c,
+                               NK, H, W, D, forget_bias)
     gate_lstm_q8.launches += 1
     return out
 
@@ -943,13 +907,10 @@ def decode_step(
     E = emb.shape[-1]
     _check_cuda(fn, "emb", emb, torch.bfloat16, (N * HW, E), dev)
     weights = _gate_weights(fn, cell_w, cell_b, weights, E, D, dev)
-    from multiverse_torch.ops._build import check, load_library
-
-    lib = load_library()
-    h2 = _attention_launch(lib, check, None, h, scene, N, H, W, D, C)
-    h_out, c_out = _gate_launch(lib, check, weights, cell_b, None, None, emb,
-                                h2, c, N, H, W, D, forget_bias)
-    logits = _readout_launch(lib, check, h_out, h2g_w, N, H, W, D)
+    h2 = _attention_launch(None, h, scene, N, H, W, D, C)
+    h_out, c_out = _gate_launch(weights, cell_b, None, None, emb, h2, c, N, H,
+                                W, D, forget_bias)
+    logits = _readout_launch(h_out, h2g_w, N, H, W, D)
     decode_step.launches += 1
     return h_out, c_out, logits
 
@@ -996,14 +957,10 @@ def decode_step_v2(
              f"h2g_w has shape {tuple(h2g_w.shape)}, expected [9*D, >=1]")
     h2g_cf = h2g_w[:, 0].reshape(9, D).t().contiguous()     # [D, 9]
     _check_cuda(fn, "h2g_w", h2g_cf, bf, (D, 9), dev)
-    from multiverse_torch.ops._build import check, load_library
-
-    lib = load_library()
-    h2 = _attention_launch(lib, check, None, h, scene, N, H, W, D, C)
-    h_out, c_out = _gate_launch(lib, check, weights, cell_b, ids, None, None,
-                                h2, c, N, H, W, D, forget_bias, emb_bg,
-                                emb_dev)
-    logits = _readout_launch(lib, check, h_out, h2g_cf, N, H, W, D)
+    h2 = _attention_launch(None, h, scene, N, H, W, D, C)
+    h_out, c_out = _gate_launch(weights, cell_b, ids, None, None, h2, c, N, H,
+                                W, D, forget_bias, emb_bg, emb_dev)
+    logits = _readout_launch(h_out, h2g_cf, N, H, W, D)
     decode_step_v2.launches += 1
     return h_out, c_out, logits
 
@@ -1022,10 +979,7 @@ def gate_inputs_q8dyn(parent_rows, h, scene, H: int, W: int
     fn = "gate_inputs_q8dyn"
     _, _, NK, D, C = _check_state(fn, h, None, scene, None, H, W,
                                   parent_rows=parent_rows)
-    from multiverse_torch.ops._build import check, load_library
-
-    out = _gate_inputs_q8dyn_launch(load_library(), check, parent_rows, h,
-                                    scene, NK, H, W, D, C)
+    out = _gate_inputs_q8dyn_launch(parent_rows, h, scene, NK, H, W, D, C)
     gate_inputs_q8dyn.launches += 1
     return out
 
@@ -1033,19 +987,17 @@ def gate_inputs_q8dyn(parent_rows, h, scene, H: int, W: int
 gate_inputs_q8dyn.launches = 0
 
 
-def _gate_inputs_q8dyn_launch(lib, check, parent_rows, h, scene, NK, H, W,
-                              D, C):
-    stream = torch.cuda.current_stream(h.device).cuda_stream
+def _gate_inputs_q8dyn_launch(parent_rows, h, scene, NK, H, W, D, C):
+    dev = h.device
     M = NK * H * W
-    h2_f = torch.empty((M, D), dtype=torch.float32, device=h.device)
-    pix_max = torch.empty((M,), dtype=torch.float32, device=h.device)
-    r_p = torch.empty((M,), dtype=torch.float32, device=h.device)
-    check(lib, lib.mv_gnn_attention_f32(
-        parent_rows.data_ptr(), h.data_ptr(),
-        None if scene is None else scene.data_ptr(), h2_f.data_ptr(),
-        pix_max.data_ptr(), NK, H, W, D, C, stream), "gnn_attention_f32")
-    check(lib, lib.mv_patch_max(pix_max.data_ptr(), r_p.data_ptr(), NK, H, W,
-                                stream), "patch_max")
+    h2_f = torch.empty((M, D), dtype=torch.float32, device=dev)
+    pix_max = torch.empty((M,), dtype=torch.float32, device=dev)
+    r_p = torch.empty((M,), dtype=torch.float32, device=dev)
+    launch("gnn_attention_f32", parent_rows.data_ptr(), h.data_ptr(),
+           _ptr(scene), h2_f.data_ptr(), pix_max.data_ptr(), NK, H, W, D, C,
+           device=dev)
+    launch("patch_max", pix_max.data_ptr(), r_p.data_ptr(), NK, H, W,
+           device=dev)
     return h2_f, r_p
 
 
@@ -1061,11 +1013,8 @@ def gate_lstm_q8dyn(quant, cell_b, prev_ids, parent_rows, h2_f, r_p, c,
     fn = "gate_lstm_q8dyn"
     dev, _, NK, D, _ = _check_state(fn, c, c, None, None, H, W, prev_ids,
                                     parent_rows)
-    from multiverse_torch.ops._build import check, load_library
-
-    out = _gate_lstm_q8dyn_launch(fn, load_library(), check, quant, cell_b,
-                                  prev_ids, parent_rows, h2_f, r_p, c, NK, H,
-                                  W, D, forget_bias)
+    out = _gate_lstm_q8dyn_launch(fn, quant, cell_b, prev_ids, parent_rows,
+                                  h2_f, r_p, c, NK, H, W, D, forget_bias)
     gate_lstm_q8dyn.launches += 1
     return out
 
@@ -1073,9 +1022,8 @@ def gate_lstm_q8dyn(quant, cell_b, prev_ids, parent_rows, h2_f, r_p, c,
 gate_lstm_q8dyn.launches = 0
 
 
-def _gate_lstm_q8dyn_launch(fn, lib, check, quant, cell_b, prev_ids,
-                            parent_rows, h2_f, r_p, c, NK, H, W, D,
-                            forget_bias):
+def _gate_lstm_q8dyn_launch(fn, quant, cell_b, prev_ids, parent_rows, h2_f,
+                            r_p, c, NK, H, W, D, forget_bias):
     dev = c.device
     HW, M = H * W, NK * H * W
     E = quant.emb_q.shape[-1]
@@ -1093,13 +1041,12 @@ def _gate_lstm_q8dyn_launch(fn, lib, check, quant, cell_b, prev_ids,
     _check_cuda(fn, "cell_b", cell_b, f32, (4 * D,), dev)
     h_out = torch.empty((M, D), dtype=torch.bfloat16, device=dev)
     c_out = torch.empty((M, D), dtype=torch.bfloat16, device=dev)
-    check(lib, lib.mv_gate_lstm_q8dyn(
-        prev_ids.data_ptr(), parent_rows.data_ptr(), quant.emb_q.data_ptr(),
-        h2_f.data_ptr(), r_p.data_ptr(), c.data_ptr(), quant.w_eqt.data_ptr(),
-        quant.t_e.data_ptr(), quant.w_hqt.data_ptr(), quant.u_c.data_ptr(),
-        cell_b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), NK, H, W, D, E,
-        float(forget_bias), torch.cuda.current_stream(dev).cuda_stream),
-        "gate_lstm_q8dyn")
+    launch("gate_lstm_q8dyn", prev_ids.data_ptr(), parent_rows.data_ptr(),
+           quant.emb_q.data_ptr(), h2_f.data_ptr(), r_p.data_ptr(),
+           c.data_ptr(), quant.w_eqt.data_ptr(), quant.t_e.data_ptr(),
+           quant.w_hqt.data_ptr(), quant.u_c.data_ptr(), cell_b.data_ptr(),
+           h_out.data_ptr(), c_out.data_ptr(), NK, H, W, D, E,
+           float(forget_bias), device=dev)
     return h_out, c_out
 
 
@@ -1134,15 +1081,12 @@ def decode_step_gathered_q8dyn(
     fn = "decode_step_gathered_q8dyn"
     dev, HW, NK, D, C = _check_state(fn, h, c, scene, h2g_w, H, W,
                                      prev_ids, parent_rows)
-    from multiverse_torch.ops._build import check, load_library
-
-    lib = load_library()
-    h2_f, r_p = _gate_inputs_q8dyn_launch(lib, check, parent_rows, h, scene,
-                                          NK, H, W, D, C)
-    h_out, c_out = _gate_lstm_q8dyn_launch(
-        fn, lib, check, quant, cell_b, prev_ids, parent_rows, h2_f, r_p, c,
-        NK, H, W, D, forget_bias)
-    logits = _readout_launch(lib, check, h_out, h2g_w, NK, H, W, D)
+    h2_f, r_p = _gate_inputs_q8dyn_launch(parent_rows, h, scene, NK, H, W, D,
+                                          C)
+    h_out, c_out = _gate_lstm_q8dyn_launch(fn, quant, cell_b, prev_ids,
+                                           parent_rows, h2_f, r_p, c, NK, H,
+                                           W, D, forget_bias)
+    logits = _readout_launch(h_out, h2g_w, NK, H, W, D)
     decode_step_gathered_q8dyn.launches += 1
     return h_out, c_out, logits
 

@@ -23,24 +23,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from multiverse_torch.ops._build import check, load_library
+from multiverse_torch.ops._build import launch
 from multiverse_torch.ops.fused_decode import (
     _check_cuda,
     _neighbor_bias,
     _require,
     _softmax,
 )
-
-_lib = None
-
-
-def _library():
-    """The kernel library, looked up at the first launch."""
-    global _lib
-    if _lib is None:
-        _lib = load_library()
-    return _lib
-
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
     # f32 accumulation, as the TPU kernels; f64 stays f64 (gradcheck)
@@ -118,11 +107,9 @@ def gnn_dense_fwd(node: torch.Tensor, states: torch.Tensor, H: int,
         return gnn_dense_fwd_ref(node, states, H, W)
     fn = "gnn_dense_fwd"
     dev, N, Dn, Ds = _check(fn, node, states, H, W)
-    lib = _library()
     out = torch.empty((node.shape[0], Ds), dtype=torch.float32, device=dev)
-    check(lib, lib.mv_gnn_dense_fwd(
-        node.data_ptr(), states.data_ptr(), out.data_ptr(), N, H, W, Dn, Ds,
-        torch.cuda.current_stream(dev).cuda_stream), fn)
+    launch(fn, node.data_ptr(), states.data_ptr(), out.data_ptr(), N, H, W,
+           Dn, Ds, device=dev)
     gnn_dense_fwd.launches += 1
     return out
 
@@ -141,7 +128,6 @@ def gnn_dense_bwd(node: torch.Tensor, states: torch.Tensor, g: torch.Tensor,
     fn = "gnn_dense_bwd"
     dev, N, Dn, Ds = _check(fn, node, states, H, W)
     _check_cuda(fn, "g", g, torch.float32, tuple(states.shape), dev)
-    lib = _library()
     NHW = node.shape[0]
     # between the two launches: attn and dedges, [N*HW, 9] f32 each, and
     # bf16(g)
@@ -149,12 +135,10 @@ def gnn_dense_bwd(node: torch.Tensor, states: torch.Tensor, g: torch.Tensor,
     g_c = torch.empty_like(states)
     dnode = torch.empty_like(node)
     dstates = torch.empty_like(states)
-    check(lib, lib.mv_gnn_dense_bwd(
-        node.data_ptr(), states.data_ptr(), g.data_ptr(),
-        scratch.data_ptr(), scratch.data_ptr() + NHW * 9 * 4,
-        g_c.data_ptr(), dnode.data_ptr(),
-        dstates.data_ptr(), N, H, W, Dn, Ds,
-        torch.cuda.current_stream(dev).cuda_stream), fn)
+    launch(fn, node.data_ptr(), states.data_ptr(), g.data_ptr(),
+           scratch.data_ptr(), scratch.data_ptr() + NHW * 9 * 4,
+           g_c.data_ptr(), dnode.data_ptr(), dstates.data_ptr(), N, H, W, Dn,
+           Ds, device=dev)
     gnn_dense_bwd.launches += 1
     return dnode, dstates
 

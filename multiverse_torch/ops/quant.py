@@ -1,7 +1,10 @@
-"""Operands of the int8 decode tiers and the tier dispatch.
+"""Operands of the int8 decode tiers, the tier dispatch, and the fused
+decode step that the beam and greedy decoders share.
 
 Port of ``quantize_decode_weights``, ``quantize_decode_weights_v2`` and
 ``select_quant`` of ``multiverse_tpu/ops/pallas_decode.py``.
+:func:`fused_decode` decides whether a decode runs the fused step and
+prepares its operands, once for both decoders.
 
 "int8" and "int8a" (K2, K3): every input of the gate product is
 bounded, so the quantisation is static:
@@ -25,10 +28,12 @@ patch maximum.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Mapping, NamedTuple, Tuple
+from typing import Callable, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
+from multiverse_torch.config import MultiverseConfig
+from multiverse_torch.geometry import one_hot_grid
 from multiverse_torch.ops.fused_decode import (
     decode_step_gathered,
     decode_step_gathered_q8,
@@ -40,6 +45,7 @@ from multiverse_torch.ops.gate_layout import (  # noqa: F401
     kernel_rows,
     prepare_gate_weights,
 )
+from multiverse_torch.ops.layers import conv2d, get_activation
 
 
 class DecodeQuant(NamedTuple):
@@ -151,26 +157,90 @@ def select_quant(decode_quant: str, cell_params: Mapping[str, torch.Tensor],
 
 def make_decode_step(decode_quant: str,
                      cell_params: Mapping[str, torch.Tensor],
-                     emb_table: torch.Tensor) -> Callable:
-    """The fused decode step of a tier, its operands prepared once per
-    decode: ``step(cell_b, h2g_w, prev_ids, parent_rows, h, c, scene, H,
-    W) -> (h', c', logits)``. "none" binds K1's bf16 gate weights, their
-    kernel layout (:func:`prepare_gate_weights`) and the embedding rows
-    to :func:`decode_step_gathered`; "int8", "int8a" and
-    "int8_dyn" bind :func:`select_quant`'s operands to K2, K3 or K7. The
-    one dispatch point of the beam and greedy decoders."""
+                     h2g_params: Mapping[str, torch.Tensor],
+                     emb_table: torch.Tensor,
+                     scene: Optional[torch.Tensor]) -> Callable:
+    """The fused decode step of a tier on the grid of ``emb_table``
+    [HW, H, W, E], its operands prepared once per decode:
+    ``step(prev_ids, parent_rows, h, c) -> (h', c', logits)``. Every
+    tier binds the f32 gate bias, the readout's [D, 9] bf16 weights and
+    the scene rows ``scene`` [M, C] (or None). "none" binds K1's bf16
+    gate weights, their kernel layout (:func:`prepare_gate_weights`) and
+    the embedding rows to :func:`decode_step_gathered`; "int8", "int8a"
+    and "int8_dyn" bind :func:`select_quant`'s operands to K2, K3 or
+    K7."""
+    bf = torch.bfloat16
+    HW, H, W = emb_table.shape[:3]
+    D = h2g_params["w"].shape[-2]
+    cell_b = cell_params["bias"].float().contiguous()
+    h2g_w = h2g_params["w"].to(bf).reshape(9, D).t().contiguous()  # [D, 9]
     if decode_quant == "none":
-        bf = torch.bfloat16
         D4 = cell_params["kernel"].shape[-1]
-        HW = emb_table.shape[0]
         cell_w = cell_params["kernel"].to(bf).reshape(-1, D4).contiguous()
         emb_rows = emb_table.to(bf).reshape(HW, HW, -1).contiguous()
         weights = prepare_gate_weights(cell_w, emb_rows.shape[-1])
 
-        def step(cell_b, h2g_w, prev_ids, parent_rows, h, c, scene, H, W):
+        def step(prev_ids, parent_rows, h, c):
             return decode_step_gathered(cell_w, cell_b, h2g_w, prev_ids,
                                         parent_rows, emb_rows, h, c, scene,
                                         H, W, weights=weights)
         return step
     quant, q8_step = select_quant(decode_quant, cell_params, emb_table)
-    return functools.partial(q8_step, quant)
+
+    def step(prev_ids, parent_rows, h, c):
+        return q8_step(quant, cell_b, h2g_w, prev_ids, parent_rows, h, c,
+                       scene, H, W)
+    return step
+
+
+def cell_embedding_table(emb_params: Mapping[str, torch.Tensor], H: int,
+                         W: int, activation: Callable,
+                         compute_dtype: Optional[torch.dtype]
+                         ) -> torch.Tensor:
+    """The decoder's input embedding of every one-hot cell, [HW, H, W,
+    E]: one conv over the HW basis maps, gathered by cell id."""
+    basis = one_hot_grid(torch.arange(H * W, device=emb_params["w"].device),
+                         H, W)
+    return conv2d(emb_params, basis, activation=activation,
+                  compute_dtype=compute_dtype)
+
+
+def _rows(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """[..., C] -> the fused step's rows [M, C], bf16 and contiguous."""
+    return None if x is None else \
+        x.to(torch.bfloat16).reshape(-1, x.shape[-1]).contiguous()
+
+
+class FusedDecode(NamedTuple):
+    """The fused decode step of one decode and its initial state rows."""
+
+    step: Callable       # (prev_ids, parent_rows, h, c) -> (h', c', logits)
+    h: torch.Tensor      # [M, D] bf16
+    c: torch.Tensor      # [M, D] bf16
+
+
+def fused_decode(cfg: MultiverseConfig, compute_dtype: Optional[torch.dtype],
+                 use_gnn: bool, emb_params: Mapping[str, torch.Tensor],
+                 cell_params: Mapping[str, torch.Tensor],
+                 h2g_params: Mapping[str, torch.Tensor], h: torch.Tensor,
+                 c: torch.Tensor, scene: Optional[torch.Tensor]
+                 ) -> Optional[FusedDecode]:
+    """The fused decode step of a class decode from the state ``h``, ``c``
+    [..., H, W, D] and ``scene`` [..., H, W, C] (or None), or None where
+    the decoder composes its step (GNN, cell, readout). The beam and
+    greedy decoders share these conditions, each adding its own: bf16
+    compute, ``cfg.allow_pallas``, the GNN on, and a one-channel class
+    decoder (a one-hot input, one logit a cell). The step
+    (:func:`make_decode_step` of ``cfg.decode_quant``'s tier) and the
+    state rows are prepared once per decode."""
+    if not (compute_dtype == torch.bfloat16 and cfg.allow_pallas and use_gnn
+            and emb_params["w"].shape[-2] == 1
+            and h2g_params["w"].shape[-1] == 1):
+        return None
+    H, W = h.shape[-3:-1]
+    emb_table = cell_embedding_table(emb_params, H, W,
+                                     get_activation(cfg.activation),
+                                     compute_dtype)
+    step = make_decode_step(cfg.decode_quant, cell_params, h2g_params,
+                            emb_table, _rows(scene))
+    return FusedDecode(step, _rows(h), _rows(c))

@@ -125,6 +125,41 @@ def test_cpu_tensors_take_the_plain_version(rng, monkeypatch):
     assert decode_step_gathered.launches == 0
 
 
+def test_launch_passes_the_stream_last_and_names_a_failed_launch(
+        monkeypatch):
+    """The one ctypes path under every wrapper: the entry point
+    ``mv_<name>`` gets the arguments and the device's current stream
+    last; a nonzero ``cudaError_t`` raises a RuntimeError naming the
+    launch and the error's string (a stand-in library here)."""
+    from multiverse_torch.ops import _build
+
+    calls = []
+
+    class Lib:
+        def mv_gate_lstm(self, *args):
+            calls.append(args)
+            return 0
+
+        def mv_patch_max(self, *args):
+            return 700
+
+        def mv_error_string(self, err):
+            return b"an illegal memory access was encountered"
+
+    class Stream:
+        cuda_stream = 1234
+
+    monkeypatch.setattr(_build, "load_library", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: Stream())
+    _build.launch("gate_lstm", 5, None, 7, device="cuda:0")
+    assert calls == [(5, None, 7, 1234)]
+    with pytest.raises(RuntimeError, match="CUDA launch of patch_max "
+                       "failed: an illegal memory access was "
+                       r"encountered \(700\)"):
+        _build.launch("patch_max", 1, device="cuda:0")
+
+
 def _k8_operands(o, dtype=torch.bfloat16):
     """K8's operands: the rows of the gathered step, gathered."""
     par, ids = o["par"], o["ids"]

@@ -5,6 +5,7 @@ int8 and int8a against the JAX decode with interpret-mode Pallas
 kernels (within 2e-2), the offline ``greedy=True`` run and its CLI, and
 the device rasteriser ``xy_to_cell``."""
 
+import itertools
 import pickle
 
 import jax
@@ -23,8 +24,10 @@ from multiverse_tpu.ops import pallas_decode as jpd
 from multiverse_torch import inference as tinf
 from multiverse_torch.bridge import params_from_jax, save_params_npz
 from multiverse_torch.cli import multifuture_inference as tcli
+from multiverse_torch.config import MultiverseConfig as TConfig
 from multiverse_torch.data.dataset import batch_to_device
-from multiverse_torch.geometry import xy_to_cell, xy_to_cell_np
+from multiverse_torch.geometry import one_hot_grid, xy_to_cell, xy_to_cell_np
+from multiverse_torch.models import beam_search as tbs
 from multiverse_torch.models import multiverse as tmv
 from multiverse_torch.ops import ConvLSTMState as TState
 from multiverse_torch.ops import quant as tquant
@@ -145,6 +148,62 @@ def test_fused_greedy_decode_tracks_jax_interpret(rng, monkeypatch,
                                atol=2e-2)
     np.testing.assert_allclose(np.asarray(js, np.float32),
                                ts.float().numpy(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize(
+    "bf16,allow_pallas,use_gnn,single,onehot,dropout",
+    list(itertools.product((False, True), repeat=6)))
+def test_one_decision_picks_the_fused_step(monkeypatch, bf16, allow_pallas,
+                                           use_gnn, single, onehot,
+                                           dropout):
+    """Which step each class decoder runs, fused or composed, over every
+    combination of what decides it. Both need bf16, ``allow_pallas`` and
+    the GNN; the beam decoder also no saved states (the single decoder
+    saves them), the greedy decoder also one-hot feedback and no
+    dropout."""
+    cfg = TConfig(scene_h=12, scene_w=16, scene_class=5, emb_size=8,
+                  enc_hidden_size=16, dec_hidden_size=16, scene_conv_dim=4,
+                  beam_size=3, use_beam_search=True, use_gnn=use_gnn,
+                  use_single_decoder=single, allow_pallas=allow_pallas,
+                  compute_dtype="bfloat16" if bf16 else "float32"
+                  ).validate()
+    sp = tmv.Multiverse.init(cfg, seed=0)["scales"]["0"]
+    N, H, W, D, T = 2, 6, 8, 16, 2
+    gen = torch.Generator().manual_seed(0)
+    first = one_hot_grid(torch.tensor([3, 40]), H, W)
+    state = TState(c=torch.randn(N, H, W, D, generator=gen),
+                   h=torch.tanh(torch.randn(N, H, W, D, generator=gen)))
+    scene = torch.rand(N, H, W, 4, generator=gen) if use_gnn else None
+    dtype = torch.bfloat16 if bf16 else None
+    calls = []
+
+    def counting(module, name, tag):
+        orig = getattr(module, name)
+
+        def fn(*args, **kw):
+            calls.append(tag)
+            return orig(*args, **kw)
+        monkeypatch.setattr(module, name, fn)
+
+    counting(tquant, "decode_step_gathered", "fused")
+    counting(tbs, "convlstm_step", "composed")
+    counting(tmv, "convlstm_step", "composed")
+    with torch.inference_mode():
+        tbs.diverse_beam_search(sp, cfg, first, state, T, scene_mean=scene,
+                                save_states=single, compute_dtype=dtype)
+        beam_calls = calls[:]
+        del calls[:]
+        tmv.greedy_decode(
+            sp, cfg, first, state, T, "dec_class_emb", "dec_class",
+            "h2g_class", use_gnn=use_gnn, scene_mean=scene,
+            feedback="onehot" if onehot else "raw", compute_dtype=dtype,
+            allow_fused=True, keep_prob=0.5 if dropout else 1.0,
+            dropout_rng=torch.Generator().manual_seed(1))
+    shared = bf16 and allow_pallas and use_gnn
+    beam_fused = shared and not single
+    greedy_fused = shared and onehot and not dropout
+    assert beam_calls == ["fused" if beam_fused else "composed"] * T
+    assert calls == ["fused" if greedy_fused else "composed"] * T
 
 
 def test_offline_greedy_pickle_matches_jax(tmp_path):

@@ -331,11 +331,14 @@ def test_make_decode_step_binds_each_tier(rng, tier):
     o = _operands(rng)
     bf = torch.bfloat16
     t = {k: torch.from_numpy(v) for k, v in o.items()}
-    cell = {"kernel": t["kernel"]}
-    args = (t["bias"], t["w"].reshape(9, D).t().to(bf), t["ids"], t["par"],
-            t["h"].reshape(-1, D).to(bf), t["c"].reshape(-1, D).to(bf),
-            t["scene"].reshape(-1, C).to(bf), H, W)
-    got = make_decode_step(tier, cell, t["emb"])(*args)
+    cell = {"kernel": t["kernel"], "bias": t["bias"]}
+    scene = t["scene"].reshape(-1, C).to(bf)
+    step_args = (t["ids"], t["par"], t["h"].reshape(-1, D).to(bf),
+                 t["c"].reshape(-1, D).to(bf))
+    args = (t["bias"], t["w"].reshape(9, D).t().to(bf), *step_args, scene, H,
+            W)
+    got = make_decode_step(tier, cell, {"w": t["w"]}, t["emb"],
+                           scene)(*step_args)
     if tier == "none":
         want = decode_step_gathered(
             t["kernel"].to(bf).reshape(-1, 4 * D), *args[:4],
