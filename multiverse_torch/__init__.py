@@ -20,6 +20,8 @@ Layout (module names follow ``multiverse_tpu``):
     train/         optimizers and train steps, evaluation, checkpoints
     eval/          scoring of output pickles (numpy)
     inference.py   beam_forward, greedy_forward, the offline run
+    decode_graphs.py  the offline run's CUDA graphs of the encoders and
+                   the regression head
     serving/       the serving engine and its HTTP front ends
     bridge.py      weights to and from the JAX parameter tree and npz
     tools/         the TF1 tensor-bundle reader and checkpoint converter

@@ -24,6 +24,12 @@ import torch
 from multiverse_torch.config import MultiverseConfig
 from multiverse_torch.data import scene as scene_lib
 from multiverse_torch.data.dataset import batch_to_device
+from multiverse_torch.decode_graphs import (
+    GraphCache,
+    graph_cache,
+    graph_key,
+    graphs_apply,
+)
 from multiverse_torch.geometry import (
     grid_centers,
     one_hot_grid,
@@ -78,6 +84,59 @@ def _encode(params, batch: Batch, cfg: MultiverseConfig, compute_dtype):
     return obs_onehot, enc_last, scene_mean
 
 
+def _encode_weights(params, cfg: MultiverseConfig) -> list:
+    """The parameters ``_encode`` reads."""
+    sp = params["scales"][str(cfg.active_scales[0])]
+    mods = [sp["enc_class"]]
+    if cfg.use_scene_enc:
+        mods += [params[f"scene_conv{i + 1}"] for i in range(cfg.num_scales)]
+    else:
+        mods.append(sp["enc_grid_emb"])
+    return [p for m in mods for p in m.parameters()]
+
+
+def _reg_weights(params, cfg: MultiverseConfig) -> list:
+    """The parameters the regression encoder and decoder read."""
+    sp = params["scales"][str(cfg.active_scales[0])]
+    return [p for name in ("enc_reg", "dec_reg_emb", "dec_reg", "h2g_reg")
+            for p in sp[name].parameters()]
+
+
+def _encode_part(params, batch: Batch, cfg: MultiverseConfig,
+                 compute_dtype, graphs: Optional[GraphCache]):
+    """``_encode``, replayed from ``graphs`` where they apply."""
+    def fn(obs_grid_class, obs_scene, scene_feat):
+        return _encode(params, Batch(obs_grid_class, (), obs_scene,
+                                     scene_feat), cfg, compute_dtype)
+
+    inputs = (batch.obs_grid_class, batch.obs_scene, batch.scene_feat)
+    if not graphs_apply(graphs, inputs):
+        return fn(*inputs)
+    return graphs.run(graph_key("encode", cfg, 0, inputs,
+                                _encode_weights(params, cfg)), fn, inputs)
+
+
+def _reg_ahead(params, batch: Batch, cfg: MultiverseConfig, T: int,
+               compute_dtype, graphs: Optional[GraphCache]):
+    """The regression head replayed from ``graphs``, where they apply, on
+    their side stream: it reads only the batch, so it runs under the
+    encoders and the class decode, and is read after ``graphs.join``.
+    None where it runs eagerly after the class decode (no graphs, or the
+    single decoder, whose head reads the decode's states)."""
+    target = batch.obs_grid_target_all[0]
+    if cfg.use_single_decoder or not graphs_apply(graphs, (target,)):
+        return None
+
+    def fn(obs_target):
+        return _reg_decode(params, Batch(None, (obs_target,), None, None),
+                           cfg, None, T, compute_dtype)
+
+    with span("decode.reg"):
+        return graphs.run(graph_key("reg", cfg, T, (target,),
+                                    _reg_weights(params, cfg)),
+                          fn, (target,), side=True)
+
+
 def _compute_dtype(cfg: MultiverseConfig) -> Optional[torch.dtype]:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
 
@@ -87,15 +146,24 @@ def beam_forward(
     batch: Batch,
     cfg: MultiverseConfig,
     T_pred: Optional[int] = None,
+    *,
+    graphs: Optional[GraphCache] = None,
 ) -> Tuple[BeamOutputs, torch.Tensor]:
     """Encoders + diverse beam decode + greedy regression decode for the
-    single active scale. Returns (BeamOutputs, reg_out [N, T, h, w, 2])."""
+    single active scale. Returns (BeamOutputs, reg_out [N, T, h, w, 2]).
+
+    ``graphs`` (the offline decode's, :mod:`multiverse_torch.decode_graphs`):
+    the encoders and the regression head run as replays of CUDA graphs,
+    their outputs overwritten by the next replay; the head's on a side
+    stream under the encoders and the search, which the current stream
+    waits for before returning."""
     cfg.validate()
     T = T_pred or cfg.pred_len
     compute_dtype = _compute_dtype(cfg)
+    reg = _reg_ahead(params, batch, cfg, T, compute_dtype, graphs)
     with span("decode.encode"):
-        obs_onehot, enc_last, scene_mean = _encode(params, batch, cfg,
-                                                   compute_dtype)
+        obs_onehot, enc_last, scene_mean = _encode_part(
+            params, batch, cfg, compute_dtype, graphs)
     sp = params["scales"][str(cfg.active_scales[0])]
     beam = diverse_beam_search(
         sp, cfg,
@@ -107,6 +175,9 @@ def beam_forward(
         save_states=cfg.use_single_decoder,
         compute_dtype=compute_dtype,
     )
+    if reg is not None:
+        graphs.join(beam.ids.device)
+        return beam, reg
     with span("decode.reg"):
         reg = _reg_decode(params, batch, cfg, beam.states, T, compute_dtype)
     return beam, reg
@@ -117,17 +188,21 @@ def greedy_forward(
     batch: Batch,
     cfg: MultiverseConfig,
     T_pred: Optional[int] = None,
+    *,
+    graphs: Optional[GraphCache] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encoders + greedy class decode + greedy regression decode (the
     ``--greedy`` path). The class decode runs the fused decode step on
     the bf16 GNN path (K1, or K2/K3/K7 under ``cfg.decode_quant``).
-    Returns (class logits [N, T, h, w, 1], reg [N, T, h, w, 2])."""
+    Returns (class logits [N, T, h, w, 1], reg [N, T, h, w, 2]).
+    ``graphs``: as in :func:`beam_forward`."""
     cfg = cfg.replace(use_beam_search=False).validate()
     T = T_pred or cfg.pred_len
     compute_dtype = _compute_dtype(cfg)
+    reg = _reg_ahead(params, batch, cfg, T, compute_dtype, graphs)
     with span("decode.encode"):
-        obs_onehot, enc_last, scene_mean = _encode(params, batch, cfg,
-                                                   compute_dtype)
+        obs_onehot, enc_last, scene_mean = _encode_part(
+            params, batch, cfg, compute_dtype, graphs)
     sp = params["scales"][str(cfg.active_scales[0])]
     logits, states = greedy_decode(
         sp, cfg,
@@ -143,6 +218,9 @@ def greedy_forward(
         compute_dtype=compute_dtype,
         allow_fused=True,
     )
+    if reg is not None:
+        graphs.join(logits.device)
+        return logits, reg
     # the single decoder's regression reads the best (here: only)
     # decode's states, [N, T, h, w, D]
     states = states[:, None] if cfg.use_single_decoder else None
@@ -155,7 +233,7 @@ def _reg_decode(params, batch, cfg, states, T, compute_dtype):
     """The regression head: with a single decoder, read out of the best
     beam's decoder states (``states`` [N, K, T, h, w, D]); otherwise the
     regression encoder and its greedy raw-feedback decoder."""
-    N = batch.obs_grid_class.shape[0]
+    N = batch.obs_grid_target_all[0].shape[0]
     i = cfg.active_scales[0]
     h, w = cfg.scene_grids[i]
     sp = params["scales"][str(i)]
@@ -422,6 +500,11 @@ def run_multifuture_inference(
     Two batches are in flight: while the device decodes batch b, a
     resolver thread waits for batch b-1's copies and packs its pickles.
 
+    On cuda the encoders and the regression head run as CUDA graphs
+    (:mod:`multiverse_torch.decode_graphs`), captured the first time a
+    batch shape is met (for these parameters, across calls) and replayed
+    for every later batch: every batch has the same shapes.
+
     Every batch decodes ``T_max`` steps (default: the longest GT
     future); a ``T_max`` below a trajectory's future truncates its
     output to ``T_max`` points.
@@ -456,6 +539,7 @@ def run_multifuture_inference(
     T = T_max or int(inputs.pred_lengths.max())
     K = cfg.beam_size
     fetch_dt = torch.float16 if prob_fetch_dtype == "float16" else None
+    graphs = graph_cache(params) if device.type == "cuda" else None
     if timings is not None:
         for k in ("build_s", "fetch_s", "fetch_bytes", "pack_s",
                   "batches"):
@@ -469,10 +553,14 @@ def run_multifuture_inference(
             with span("decode.forward"):
                 if greedy:
                     logits, reg_out = greedy_forward(params, on_device, cfg,
-                                                     T_pred=T)
+                                                     T_pred=T, graphs=graphs)
                 else:
                     beam, reg_out = beam_forward(params, on_device, cfg,
-                                                 T_pred=T)
+                                                 T_pred=T, graphs=graphs)
+            # on cuda reg_out and the encoders' outputs are the graphs'
+            # buffers, which the next batch's replays overwrite: all that
+            # reads them is enqueued on this stream, which those replays
+            # wait for
             with span("decode.copy_out"):
                 if greedy:
                     outs = [reconstruct_greedy_trajs(logits, reg_out,

@@ -25,7 +25,11 @@ one neighbour; the training attention's K4
 2e-2), also at SimAug's shapes (N = 36 and 12) and with only the node
 rows requiring grad, the decodes that must run them, and a SimAug
 attack step's input gradient through them within 2e-2 relative L2 of
-the plain versions'. A CUDA kernel has no CPU mode, so without a GPU
+the plain versions'. The offline decode's CUDA graphs of the encoders
+and the regression head: pickles byte-equal to the eager path's in
+every tier and greedy at the published widths, one capture a shape and
+then replays, replays that follow weights loaded in place or replaced,
+and serving left eager. A CUDA kernel has no CPU mode, so without a GPU
 every test here skips.
 
 This file imports neither jax nor tests/conftest.py's fixtures, so it
@@ -926,3 +930,140 @@ def test_new_kernels_reject_operands_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="ids"):
         decode_step_v2(**dict(k9, ids=k9["ids"].long()), H=6, W=8)
     assert (decode_step.launches, decode_step_v2.launches) == before
+
+
+# ------------------------------------------- the offline decode's graphs
+
+
+def _published(**kw):
+    """The published widths, K = 20 diverse beams, bf16."""
+    return MultiverseConfig(
+        use_beam_search=True, beam_size=20, diverse_beam=True,
+        diverse_gamma=0.01, fix_num_timestep=1, use_gnn=True,
+        use_scene_enc=True, use_soft_grid_class=True,
+        compute_dtype="bfloat16", **kw).validate()
+
+
+def _offline(model, inputs, cfg, greedy=False, graphed=True):
+    """Both pickle dicts of one offline decode at T = 25, batch 16; with
+    ``graphed`` False the encoders and the regression head run eagerly."""
+    def run():
+        return inference.run_multifuture_inference(
+            model, inputs, cfg, batch_size=16, T_max=25, greedy=greedy,
+            device="cuda")
+    if graphed:
+        return run()
+    with mock.patch.object(inference, "graph_cache", lambda params: None):
+        return run()
+
+
+def _counted(fn):
+    """The program's counters while ``fn()`` runs under the profiler."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from multiverse_torch import utils
+
+    utils.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        fn()
+    torch.cuda.synchronize()
+    got = Counter()
+    for c in utils.span_snapshot()["counters"]:
+        got[c.name] += c.value
+    return got
+
+
+@pytest.mark.parametrize("seed", [11, 23])
+@pytest.mark.parametrize("tier", ["none", "int8", "int8a", "int8_dyn",
+                                  "greedy"])
+def test_graphed_decode_pickles_equal_the_eager_ones(cuda, tier, seed):
+    import pickle
+
+    from multiverse_torch.decode_graphs import graph_cache
+
+    greedy = tier == "greedy"
+    cfg = _published(decode_quant="none" if greedy else tier)
+    model = Multiverse.init(cfg, seed=seed).to(cuda)
+    inputs = inference.synthesize_multifuture_inputs(cfg, 64, seed=seed,
+                                                     max_pred_len=25)
+    eager = _offline(model, inputs, cfg, greedy, graphed=False)
+    assert len(graph_cache(model)) == 0
+    graphed = _offline(model, inputs, cfg, greedy)
+    assert len(graph_cache(model)) == 2
+    assert len(eager[0]) == 64 and len(eager[1]) == (0 if greedy else 64)
+    assert pickle.dumps(graphed) == pickle.dumps(eager)
+
+
+def test_two_decodes_at_one_shape_capture_once_then_replay(cuda):
+    cfg = _published()
+    model = Multiverse.init(cfg, seed=3).to(cuda)
+    inputs = inference.synthesize_multifuture_inputs(cfg, 40, seed=3,
+                                                     max_pred_len=25)
+    first = _counted(lambda: _offline(model, inputs, cfg))
+    second = _counted(lambda: _offline(model, inputs, cfg))
+    # three batches (the last padded), two parts each
+    assert first["beam.steps"] == second["beam.steps"] == 3 * 25
+    assert first["decode.graph_captures"] == 2
+    assert first["decode.graph_replays"] == 6
+    assert second["decode.graph_captures"] == 0
+    assert second["decode.graph_replays"] == 6
+
+
+def test_replay_follows_weights_loaded_in_place_or_replaced(cuda):
+    import pickle
+
+    from multiverse_torch.decode_graphs import graph_cache
+
+    cfg = _published()
+    model = Multiverse.init(cfg, seed=5).to(cuda)
+    first = {k: v.clone() for k, v in model.state_dict().items()}
+    other = Multiverse.init(cfg, seed=6).to(cuda)
+    inputs = inference.synthesize_multifuture_inputs(cfg, 32, seed=5,
+                                                     max_pred_len=25)
+    before = pickle.dumps(_offline(model, inputs, cfg))
+    ptrs = [p.data_ptr() for p in model.parameters()]
+    model.load_state_dict(other.state_dict())
+    assert [p.data_ptr() for p in model.parameters()] == ptrs
+    after = pickle.dumps(_offline(model, inputs, cfg))
+    assert len(graph_cache(model)) == 2          # replayed, not captured
+    assert after != before
+    assert after == pickle.dumps(_offline(other, inputs, cfg,
+                                          graphed=False))
+    # new parameter tensors: captured anew, the old graphs never replayed
+    model.load_state_dict(first, assign=True)
+    assert [p.data_ptr() for p in model.parameters()] != ptrs
+    assert pickle.dumps(_offline(model, inputs, cfg)) == before
+    assert len(graph_cache(model)) == 4
+
+
+def test_serving_runs_the_parts_eagerly(cuda):
+    from multiverse_torch.decode_graphs import _CACHES
+    from multiverse_torch.serving.engine import ServingEngine
+
+    cfg = MultiverseConfig(
+        obs_len=8, pred_len=5, scene_h=12, scene_w=16, scene_class=5,
+        emb_size=8, enc_hidden_size=32, dec_hidden_size=32,
+        scene_conv_dim=8, use_beam_search=True, beam_size=4,
+        diverse_beam=True, diverse_gamma=0.01, fix_num_timestep=1,
+        use_gnn=True, use_scene_enc=True,
+        compute_dtype="bfloat16").validate()
+    model = Multiverse.init(cfg, seed=0)
+    eng = ServingEngine(model, cfg, max_batch=4, max_delay_ms=5.0,
+                        T_pred=5, device="cuda")
+    rnd = np.random.RandomState(0)
+    try:
+        def serve():
+            eng.warmup()
+            for _ in range(3):
+                obs = np.stack([rnd.uniform(0, cfg.video_w, cfg.obs_len),
+                                rnd.uniform(0, cfg.video_h, cfg.obs_len)],
+                               axis=1).astype(np.float32)
+                eng.predict(obs, pred_len=5)
+        got = _counted(serve)
+    finally:
+        eng.close()
+    assert got["beam.steps"] > 0
+    assert got["decode.graph_captures"] == got["decode.graph_replays"] == 0
+    assert model not in _CACHES

@@ -301,6 +301,163 @@ def test_cli_profile_writes_trace_and_spans(tmp_path):
     assert {"decode.batch", "beam.step", "beam.select"} <= names
 
 
+# --------------------------------------------- the offline decode's graphs
+
+
+def _part_inputs(cfg, n=4, seed=0):
+    inputs = tinf.synthesize_multifuture_inputs(cfg, n + 1, seed=seed,
+                                                max_pred_len=6)
+    b = batch_to_device(tinf.make_batch(inputs, np.arange(n), cfg),
+                        torch.device("cpu"))
+    return (b.obs_grid_class, b.obs_scene, b.scene_feat)
+
+
+def test_graphs_apply_only_to_a_cache_and_cuda_tensors():
+    from types import SimpleNamespace
+
+    from multiverse_torch.decode_graphs import GraphCache, graphs_apply
+
+    on_card = SimpleNamespace(is_cuda=True)
+    on_cpu = torch.zeros(2)
+    assert graphs_apply(GraphCache(), [on_card, on_card])
+    assert not graphs_apply(None, [on_card])
+    assert not graphs_apply(GraphCache(), [on_cpu])
+    assert not graphs_apply(GraphCache(), [on_card, on_cpu])
+
+
+def test_graph_key_hits_the_same_shapes_and_weights():
+    from multiverse_torch.decode_graphs import graph_key
+
+    cfg = _cfg()
+    _, model = _params(cfg)
+    weights = tinf._encode_weights(model, cfg)
+    a = graph_key("encode", cfg, 6, _part_inputs(cfg, seed=0), weights)
+    # other values of the same shapes, weights updated in place
+    with torch.no_grad():
+        weights[0].add_(1.0)
+    b = graph_key("encode", cfg, 6, _part_inputs(cfg, seed=5),
+                  tinf._encode_weights(model, cfg))
+    assert a == b and hash(a) == hash(b)
+    # every parameter each part reads, and no other
+    names = {n for n, p in model.named_parameters()
+             if any(p is w for w in weights)}
+    assert names == {"scene_conv1.w", "scene_conv1.b", "scene_conv2.w",
+                     "scene_conv2.b", "scales.0.enc_class.kernel",
+                     "scales.0.enc_class.bias"}
+    reg = {n for n, p in model.named_parameters()
+           if any(p is w for w in tinf._reg_weights(model, cfg))}
+    assert reg == {"scales.0.enc_reg.kernel", "scales.0.enc_reg.bias",
+                   "scales.0.dec_reg.kernel", "scales.0.dec_reg.bias",
+                   "scales.0.dec_reg_emb.w", "scales.0.dec_reg_emb.b",
+                   "scales.0.h2g_reg.w"}
+
+
+@pytest.mark.parametrize("change", ["part", "N", "T", "tier", "dtype",
+                                    "device", "new_weights"])
+def test_graph_key_misses_on_what_a_capture_depends_on(change):
+    from multiverse_torch.decode_graphs import graph_key
+
+    cfg = _cfg()
+    _, model = _params(cfg)
+    inputs = _part_inputs(cfg)
+    weights = tinf._encode_weights(model, cfg)
+    args = dict(part="encode", cfg=cfg, T=6, inputs=inputs, weights=weights)
+    if change == "part":
+        args["part"] = "reg"
+    elif change == "N":
+        args["inputs"] = _part_inputs(cfg, n=3)
+    elif change == "T":
+        args["T"] = 7
+    elif change == "tier":
+        args["cfg"] = cfg.replace(compute_dtype="bfloat16")
+    elif change == "dtype":
+        args["inputs"] = (inputs[0].long(),) + inputs[1:]
+    elif change == "device":
+        args["inputs"] = inputs[:2] + (inputs[2].to("meta"),)
+    else:
+        # the same values in new tensors (weights loaded by replacing them)
+        model.load_state_dict(
+            {k: v.clone() for k, v in model.state_dict().items()},
+            assign=True)
+        args["weights"] = tinf._encode_weights(model, cfg)
+    assert graph_key(**args) != graph_key("encode", cfg, 6, inputs, weights)
+
+
+def test_graph_cache_hits_and_evicts_the_oldest():
+    from multiverse_torch.decode_graphs import CAPACITY, GraphCache
+
+    made = []
+
+    def make(k):
+        return lambda: made.append(k) or ("entry", k)
+
+    cache = GraphCache(capacity=2)
+    assert cache.get("a", make("a")) == ("entry", "a")
+    assert cache.get("a", make("a")) == ("entry", "a")
+    assert made == ["a"]
+    cache.get("b", make("b"))
+    cache.get("a", make("a"))       # a is now the most recent
+    cache.get("c", make("c"))       # evicts b, the oldest
+    assert "a" in cache and "c" in cache and "b" not in cache
+    assert len(cache) == 2
+    cache.get("b", make("b"))
+    assert made == ["a", "b", "c", "b"] and "a" not in cache
+    assert GraphCache().capacity == CAPACITY == 8
+
+
+def test_graph_cache_follows_the_parameters_object():
+    import gc
+    import weakref
+
+    from multiverse_torch.decode_graphs import graph_cache
+
+    cfg = _cfg()
+    _, model = _params(cfg)
+    _, other = _params(cfg)
+    assert graph_cache(model) is graph_cache(model)
+    assert graph_cache(other) is not graph_cache(model)
+    # the cache does not keep the parameters alive
+    gone = weakref.ref(other)
+    del other
+    gc.collect()
+    assert gone() is None
+
+
+def test_cpu_decode_runs_eagerly_and_captures_nothing():
+    """On the CPU the offline decode makes no cache and counts no
+    capture or replay, while its other counters record; a part given a
+    cache runs eagerly on CPU tensors."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multiverse_torch import utils
+    from multiverse_torch.decode_graphs import _CACHES, GraphCache
+
+    cfg = _cfg()
+    _, model = _params(cfg)
+    inputs = tinf.synthesize_multifuture_inputs(cfg, 3, seed=0,
+                                                max_pred_len=6)
+    utils.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        tinf.run_multifuture_inference(model, inputs, cfg, batch_size=2,
+                                       device="cpu")
+    cache = GraphCache()
+    names = {c.name for c in utils.span_snapshot()["counters"]}
+    assert "beam.steps" in names
+    assert not names & {"decode.graph_captures", "decode.graph_replays"}
+    assert model not in _CACHES
+    # given a cache, CPU tensors still run eagerly, and the regression
+    # head is not sent ahead of the class decode
+    batch = batch_to_device(tinf.make_batch(inputs, np.arange(2), cfg),
+                            torch.device("cpu"))
+    with torch.inference_mode():
+        enc = tinf._encode_part(model, batch, cfg, None, cache)
+        want = tinf._encode(model, batch, cfg, None)
+    assert torch.equal(enc[0], want[0]) and torch.equal(enc[1].h, want[1].h)
+    assert tinf._reg_ahead(model, batch, cfg, 6, None, cache) is None
+    assert tinf._reg_ahead(model, batch, cfg, 6, None, None) is None
+    assert len(cache) == 0
+
+
 def test_port_never_imports_jax():
     """With jax, the JAX package, orbax, tensorstore, zstandard and
     tensorflow made unimportable, every module of the port and chip_smoke.py import
